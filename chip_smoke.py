@@ -10,7 +10,8 @@ It needs no JAX and no network. Phases, each fatal on failure:
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
   2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc.
   3. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes (and the K sweep), with times and bounds.
+     the main path's shapes, the K sweep and one ragged shape, with times,
+     device time per launched kernel (torch.profiler) and bounds.
   4-6. the main path, with every launch counter set to 0 first: the sampler
      at the published width (B=32, C=4, L=4633, hid_dim 128, codebooks
      32/32, priors 128x4Lx2H and 32x1Lx1H, 5 classes, seeded random
@@ -21,8 +22,7 @@ It needs no JAX and no network. Phases, each fatal on failure:
      CPU (plain versions) with the same weights and noise; and two series
      at the published width through the card and the CPU.
   8. profile: device time by kernel and the device's idle share over one
-     sample batch and one reconstruct batch, and the VQ kernel's device
-     time per call (torch.profiler).
+     sample batch and one reconstruct batch (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``. Any failure
@@ -30,6 +30,7 @@ raises and exits non-zero before that line.
 """
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -41,6 +42,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_SHAPES = [(864, 32, 128), (3456, 32, 128), (3456, 512, 128), (3456, 2048, 128)]
+CHECK_SHAPES = KERNEL_SHAPES + [(865, 33, 20)]  # a ragged shape: 4-byte copies, padded dims
 MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two per batch
 B, C, L, N_CLASSES = 32, 4, 4633, 5
 SMALL_CFG = {
@@ -82,10 +84,25 @@ def vq_bound(M, K, D):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def kernel_names(events):
+    """Device time per kernel name (us) and launches, from profiler events."""
+    by_name = {}
+    for name, d in events:
+        m = re.search(r"(\w+_kernel(?:<.*>)?)\(", name.replace("(anonymous namespace)::", ""))
+        key = m.group(1) if m else name[:60]
+        n, t = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, t + d)
+    return by_name
+
+
 def kernel_phase(torch, vq_kernel):
+    """The VQ kernel against its plain version at every shape of CHECK_SHAPES;
+    at KERNEL_SHAPES also its time (events), device time per kernel per call
+    (profiler), the bound, and the times of the plain version, of
+    cdist+argmin and of the fp32 product flat @ embed.T alone."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for M, K, D in KERNEL_SHAPES:
+    for M, K, D in CHECK_SHAPES:
         flat = torch.randn(M, D, device="cuda", generator=gen)
         embed = torch.randn(K, D, device="cuda", generator=gen)
         idx, cnt, es = vq_kernel.nearest_codes_stats(flat, embed)
@@ -105,17 +122,30 @@ def kernel_phase(torch, vq_kernel):
         err = float((es - r_es).abs().max())
         check(bool(((es - r_es).abs() <= 1e-4 + 1e-6 * r_es.abs()).all()),
               f"embed_sum off by {err} at {(M, K, D)}")
+        line = (f"[kernel] vq_nearest_stats M={M} K={K} D={D}: idx rows off {len(rows)} "
+                f"(near-ties {int(near.sum())}), embed_sum err {err:.3g}")
+        if (M, K, D) not in KERNEL_SHAPES:
+            print(line + " (correctness only)", flush=True)
+            continue
 
         ms = time_ms(torch, lambda: vq_kernel.nearest_codes_stats(flat, embed))
         plain_ms = time_ms(torch, lambda: vq_kernel.nearest_codes_stats_plain(flat, embed))
         lib_ms = time_ms(torch, lambda: torch.cdist(flat, embed).argmin(-1))
+        mm_ms = time_ms(torch, lambda: flat @ embed.T)  # cuBLAS fp32: the distances' product alone
         bound_ms, bound_by = vq_bound(M, K, D)
-        results[(M, K, D)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-        print(f"[kernel] vq_nearest_stats M={M} K={K} D={D}: idx rows off {len(rows)} "
-              f"(near-ties {int(near.sum())}), embed_sum err {err:.3g}, "
-              f"{ms:.4f} ms/call, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}), library_ms {lib_ms:.4f} (cdist+argmin: idx only)", flush=True)
+        iters = 20
+        _, events = device_events(torch, lambda: [vq_kernel.nearest_codes_stats(flat, embed)
+                                                  for _ in range(iters)])
+        by_kernel = {k: (n / iters, t / 1e3 / iters) for k, (n, t) in kernel_names(events).items()}
+        device_ms = sum(t for _, t in by_kernel.values()) or None
+        results[(M, K, D)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
+        split = ", ".join(f"{k} {t:.5f} ms x{n:g}" for k, (n, t) in by_kernel.items())
+        print(f"{line}, {ms:.4f} ms/call, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}), library_ms {lib_ms:.4f} (cdist+argmin: idx only), fp32 "
+              f"matmul alone {mm_ms:.4f} ms; device ms "
+              f"per call {device_ms if device_ms is None else f'{device_ms:.5f}'}: "
+              f"{split or 'not measured'}", flush=True)
     return results
 
 
@@ -174,11 +204,10 @@ def device_events(torch, fn, ops=None):
     return prof_ms, events
 
 
-def profile_phase(torch, sampler, vq_kernel, series, flat, embed, wall_ms):
-    """Where a sampler batch and a reconstruct batch spend device time, and
-    the VQ kernel's device time per call. The idle share is taken against
-    the unprofiled wall time per batch (``wall_ms``), since the profiler
-    slows the host."""
+def profile_phase(torch, sampler, series, wall_ms):
+    """Where a sampler batch and a reconstruct batch spend device time. The
+    idle share is taken against the unprofiled wall time per batch
+    (``wall_ms``), since the profiler slows the host."""
     for label, fn in (("sample", lambda: sampler.sample(B, seed=5)),
                       ("reconstruct", lambda: sampler.reconstruct(series[:B]))):
         convs = []
@@ -200,16 +229,6 @@ def profile_phase(torch, sampler, vq_kernel, series, flat, embed, wall_ms):
             print(f"[profile]   {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
         for ms, n, key, shapes in convs[:6]:
             print(f"[profile]   conv {ms:8.3f} ms  x{n:<3d} {key[6:]} {shapes}", flush=True)
-    iters = 20
-    _, events = device_events(torch, lambda: [vq_kernel.nearest_codes_stats(flat, embed)
-                                              for _ in range(iters)])
-    per_call = {k: sum(d for name, d in events if k in name) / 1e3 / iters
-                for k in ("assign_kernel", "stats_kernel")}
-    device_ms = sum(per_call.values()) or None
-    print(f"[profile] vq_nearest_stats {tuple(flat.shape)}x{tuple(embed.shape)}: device ms "
-          f"per call: assign {per_call['assign_kernel']:.5f}, stats "
-          f"{per_call['stats_kernel']:.5f}", flush=True)
-    return device_ms
 
 
 def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
@@ -356,11 +375,7 @@ def main():
     print("[reconstruct] tokens equal to the plain VQ version on the card", flush=True)
     small_model_check(torch, Config, TrainedModelSampler)
     published_width_check(torch, Config, TrainedModelSampler, sampler, series)
-    M, K, D = MAIN_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    device_ms = profile_phase(torch, sampler, vq_kernel, series,
-                              torch.randn(M, D, device="cuda", generator=gen),
-                              torch.randn(K, D, device="cuda", generator=gen), wall_ms)
+    profile_phase(torch, sampler, series, wall_ms)
 
     main_numbers = kernels[MAIN_SHAPE]
     entry = {
@@ -375,7 +390,7 @@ def main():
         "bound_ms": main_numbers["bound_ms"],
         "bound_by": main_numbers["bound_by"],
         "library_ms": main_numbers["library_ms"],
-        "device_ms": device_ms,
+        "device_ms": main_numbers["device_ms"],
         "shape_MKD": list(MAIN_SHAPE),
     }
     print(json.dumps({"kernels": [entry]}))

@@ -8,14 +8,23 @@ maps (M, D) x (K, D) float32 to
     counts (K,) float32   rows assigned to each code
     embed_sum (K, D)      sum of the rows assigned to each code
 
-On a CUDA tensor it launches the hand-written kernel in
-``tvqvae_tpu_torch/csrc/vq_nearest.cu`` (the design and what bounds it are
-noted there), built with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` beside the package and loaded with ``ctypes``. On a CPU
-tensor it runs ``nearest_codes_stats_plain``, the same function in plain
-PyTorch, which also serves as the kernel's reference on the card. A CUDA
-tensor never falls back to the plain version: the kernel runs or the call
-raises.
+On a CUDA tensor it launches the hand-written kernels in
+``tvqvae_tpu_torch/csrc/vq_nearest.cu``, built with ``nvcc`` for ``sm_90a`` at
+first use into ``build/kernels/`` beside the package and loaded with
+``ctypes``. On a CPU tensor it runs ``nearest_codes_stats_plain``, the same
+function in plain PyTorch, which also serves as the kernels' reference on the
+card. A CUDA tensor never falls back to the plain version: the kernels run or
+the call raises.
+
+The kernels (notes at the top of the ``.cu`` file) read x from device memory
+once, in tiles of 64 rows held in shared memory; distances are register-tiled
+fp32 FFMA against a codebook streamed in chunks of 32 or 128 codes; each tile
+writes per-code partial sums, which a last kernel adds in tile order, so the
+statistics are deterministic without atomics. What bounds them on an H100:
+bytes at K=32 (the published codebooks), fp32 operations at K >= 512.
+``plan`` decides, from the shapes and the card's SM count, whether the codes
+are split over a second grid dimension (at most three launches then, else
+two) and how much scratch the kernels need; one ``torch.empty`` holds it.
 
 No gradient is needed: the indices are integers and counts/embed_sum feed
 only the EMA codebook update, so none of the outputs carries a tangent (the
@@ -24,12 +33,14 @@ reason ``tvqvae_tpu/models/vq.py`` wraps the TPU kernel's inputs in
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -39,7 +50,13 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-MAX_DIM = 512  # the statistics kernel keeps 4 columns per thread of 128
+MAX_DIM = 512  # a 64-row tile of x at D=512 still fits in shared memory
+# Rows of x per block (kTileRows in vq_nearest.cu) and the chunk widths its
+# assign kernel is built for (codes per chunk). They must match the source.
+TILE_ROWS = 64
+CHUNK_CODES = (32, 128)
+BLOCKS_PER_SM = 2  # split the codes until the assign grid has this many blocks a SM
+SCRATCH_ALIGN = 256
 
 # Launches of the CUDA kernel (one per wrapper call that reaches the card).
 launch_count = 0
@@ -57,6 +74,49 @@ def nearest_codes_stats_plain(flat: torch.Tensor, embed: torch.Tensor):
     counts = torch.bincount(idx, minlength=embed.shape[0]).to(flat.dtype)
     embed_sum = torch.zeros_like(embed).index_add_(0, idx, flat)
     return idx.to(torch.int32), counts, embed_sum
+
+
+class Plan(NamedTuple):
+    """Launch plan and scratch layout of one call (byte offsets into one buffer)."""
+
+    tiles: int
+    chunk_codes: int
+    splits: int
+    chunks_per_split: int
+    slots: int
+    offsets: dict
+    scratch_bytes: int
+
+
+def plan(M: int, K: int, D: int, sms: int) -> Plan:
+    """Tiles of TILE_ROWS rows; chunks of 32 codes where K <= 32 (no padding
+    codes at the published codebook size), else of 128, split over a second
+    grid dimension while tiles alone give fewer than BLOCKS_PER_SM blocks per
+    SM. Scratch: pcnt (tiles, slots) int32 and part (tiles, slots, D)
+    float32; where K > TILE_ROWS, slot_tab (tiles, K) int32; with a split,
+    the winners win_val/win_idx (splits, M)."""
+    tiles = -(-M // TILE_ROWS)
+    chunk_codes = CHUNK_CODES[0] if K <= CHUNK_CODES[0] else CHUNK_CODES[1]
+    chunks = -(-K // chunk_codes)
+    splits = min(chunks, -(-BLOCKS_PER_SM * sms // tiles))
+    chunks_per_split = -(-chunks // splits)
+    splits = -(-chunks // chunks_per_split)  # no empty split
+    slots = min(TILE_ROWS, K)
+    sizes = {"pcnt": 4 * tiles * slots, "part": 4 * tiles * slots * D}
+    if K > TILE_ROWS:  # else a tile's slot is the code itself
+        sizes["slot_tab"] = 4 * tiles * K
+    if splits > 1:
+        sizes.update(win_val=4 * splits * M, win_idx=4 * splits * M)
+    offsets, end = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = end
+        end += -(-n // SCRATCH_ALIGN) * SCRATCH_ALIGN
+    return Plan(tiles, chunk_codes, splits, chunks_per_split, slots, offsets, end)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _find_nvcc() -> str:
@@ -94,9 +154,13 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             lib.vq_nearest_stats.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p,                   # flat, embed
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # M, K, D
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # chunk_codes, splits, chunks_per_split
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, counts, embed_sum
+                ctypes.c_void_p, ctypes.c_void_p,                   # win_val, win_idx
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # slot_tab, pcnt, part
+                ctypes.c_void_p,                                    # stream
             ]
             lib.vq_nearest_stats.restype = ctypes.c_int
             lib.vq_error_string.argtypes = [ctypes.c_int]
@@ -135,13 +199,20 @@ def nearest_codes_stats(flat: torch.Tensor, embed: torch.Tensor):
     if D > MAX_DIM:
         raise ValueError(f"the CUDA kernel takes D <= {MAX_DIM}, got {D}")
     lib = _load()
+    index = flat.device.index if flat.device.index is not None else torch.cuda.current_device()
+    pl = plan(M, K, D, _sm_count(index))
     idx = torch.empty(M, dtype=torch.int32, device=flat.device)
     counts = torch.empty(K, dtype=torch.float32, device=flat.device)
     embed_sum = torch.empty(K, D, dtype=torch.float32, device=flat.device)
+    scratch = torch.empty(pl.scratch_bytes, dtype=torch.uint8, device=flat.device)
+    base = scratch.data_ptr()
+    at = {name: base + off for name, off in pl.offsets.items()}
     with torch.cuda.device(flat.device):
         err = lib.vq_nearest_stats(
-            flat.data_ptr(), embed.data_ptr(), M, K, D, idx.data_ptr(),
-            counts.data_ptr(), embed_sum.data_ptr(),
+            flat.data_ptr(), embed.data_ptr(), M, K, D,
+            pl.chunk_codes, pl.splits, pl.chunks_per_split,
+            idx.data_ptr(), counts.data_ptr(), embed_sum.data_ptr(),
+            at.get("win_val"), at.get("win_idx"), at.get("slot_tab"), at["pcnt"], at["part"],
             torch.cuda.current_stream(flat.device).cuda_stream,
         )
     if err != 0:
