@@ -12,27 +12,39 @@ It needs no JAX and no network. Phases, each fatal on failure:
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, the K sweep and one ragged shape, with times,
      device time per launched kernel (torch.profiler) and bounds.
-  4-6. the main path, with every launch counter set to 0 first: the sampler
-     at the published width (B=32, C=4, L=4633, hid_dim 128, codebooks
-     32/32, priors 128x4Lx2H and 32x1Lx1H, 5 classes, seeded random
-     weights), ``reconstruct`` of 64 series (two launches of the VQ kernel
-     per batch), and the HTTP server answering three requests.
-  7. checks after the counted run: the reconstruct tokens against the plain
-     VQ version; a small model on the card against the same model on the
-     CPU (plain versions) with the same weights and noise; and two series
-     at the published width through the card and the CPU.
-  8. profile: device time by kernel and the device's idle share over one
-     sample batch and one reconstruct batch (torch.profiler).
+  4-6. the served path, with every launch counter set to 0 first: the
+     sampler at the published width (B=32, C=4, L=4633, hid_dim 128,
+     codebooks 32/32, priors 128x4Lx2H and 32x1Lx1H, 5 classes, seeded
+     random weights), ``reconstruct`` of 64 series (two launches of the VQ
+     kernel per batch), and the HTTP server answering three requests.
+  7. train: the counters set to 0 again, ``train_stage1`` at the published
+     width (``Config()``, dropout as configured) for 40 steps on 320
+     synthetic series (288 train, 32 test): two VQ kernel launches per step
+     and per validation batch, a finite loss that falls after the warmup,
+     steady ms per step (CUDA events), peak memory.
+  8. checks after the counted runs: the reconstruct tokens against the
+     plain VQ version; a small model on the card against the same model on
+     the CPU (plain versions) with the same weights and noise, sampling and
+     three training steps; one more published-width training step from
+     the trained state through the VQ kernel and through its plain twin
+     (indices and EMA codebook state); and two series at the published
+     width through the card and the CPU.
+  9. profile: device time by kernel and the device's idle share over one
+     sample batch, one reconstruct batch and one training step
+     (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero before that line.
 """
 
+import functools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from http.client import HTTPConnection
@@ -45,6 +57,10 @@ KERNEL_SHAPES = [(864, 32, 128), (3456, 32, 128), (3456, 512, 128), (3456, 2048,
 CHECK_SHAPES = KERNEL_SHAPES + [(865, 33, 20)]  # a ragged shape: 4-byte copies, padded dims
 MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two per batch
 B, C, L, N_CLASSES = 32, 4, 4633, 5
+TRAIN_STEPS, TRAIN_SERIES = 40, 320
+VQ_KERNELS = ("assign_kernel", "merge_stats_kernel", "final_kernel")  # csrc/vq_nearest.cu
+CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+            "aten::convolution_backward")
 SMALL_CFG = {
     "encoder": {"init_dim": 4, "hid_dim": 16, "n_resnet_blocks": 1,
                 "downsampled_width": {"lf": 4, "hf": 8}},
@@ -194,41 +210,260 @@ def device_events(torch, fn, ops=None):
         fn()
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t0)
-    events = [(e.name, e.time_range.end - e.time_range.start)
-              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     if ops is not None:
         for e in prof.key_averages(group_by_input_shape=True):
-            if e.key in ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose"):
-                ops.append((e.device_time_total / 1e3, e.count, e.key, e.input_shapes[:2]))
+            if e.key in CONV_OPS:
+                ops.append((e.device_time_total / 1e3, e.count, e.key, e.input_shapes[:3]))
         ops.sort(key=lambda o: -o[0])
     return prof_ms, events
 
 
+def print_profile(label, fn, wall_ms, n_convs=6):
+    """Device busy time, idle share against ``wall_ms`` (the unprofiled time
+    of the same work: the profiler slows the host), the top device kernels
+    and the top convolutions by shape, of one call of ``fn``."""
+    import torch
+
+    convs = []
+    prof_ms, events = device_events(torch, fn, convs)
+    if not events:
+        print(f"[profile] {label}: the profiler saw no device time: not measured", flush=True)
+        return
+    busy_ms = sum(d for _, d in events) / 1e3
+    by_name = {}
+    for name, d in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + d)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    vq = [d for name, d in events if any(k in name for k in VQ_KERNELS)]
+    print(f"[profile] {label}: device busy {busy_ms:.2f} ms over {len(events)} device events; "
+          f"unprofiled wall {wall_ms:.2f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; "
+          f"profiled wall {prof_ms:.2f} ms; VQ kernel {sum(vq) / 1e3:.4f} ms in {len(vq)} device "
+          f"kernels ({sum(vq) / 1e3 / busy_ms:.3%} of busy)", flush=True)
+    for name, (n, t) in top:
+        print(f"[profile]   {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
+    for key in CONV_OPS:
+        for ms, n, _, shapes in [c for c in convs if c[2] == key][:n_convs]:
+            print(f"[profile]   conv {ms:8.3f} ms  x{n:<3d} {key[6:]} {shapes}", flush=True)
+
+
 def profile_phase(torch, sampler, series, wall_ms):
-    """Where a sampler batch and a reconstruct batch spend device time. The
-    idle share is taken against the unprofiled wall time per batch
-    (``wall_ms``), since the profiler slows the host."""
+    """Where a sampler batch and a reconstruct batch spend device time."""
     for label, fn in (("sample", lambda: sampler.sample(B, seed=5)),
                       ("reconstruct", lambda: sampler.reconstruct(series[:B]))):
-        convs = []
-        prof_ms, events = device_events(torch, fn, convs)
-        if not events:
-            print(f"[profile] {label}: the profiler saw no device time: not measured", flush=True)
+        print_profile(f"{label} of {B}", fn, wall_ms[label])
+
+
+class StepRecorder:
+    """The logger ``train_stage1`` calls: each step's loss as a device tensor
+    (read after the run, so nothing waits for the device between steps) and
+    a CUDA event recorded after the step's work; the validations."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.losses, self.events, self.val = [], [], []
+
+    def log_metrics(self, metrics, step):
+        if "train/loss" in metrics:
+            self.losses.append(metrics["train/loss"])
+            self.events.append(self.torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+        else:
+            self.val.append((step, metrics))
+
+
+def train_phase(torch, vq_kernel):
+    """``train_stage1`` at the published width, counted; -> (state, data,
+    steady ms per step, VQ kernel launches)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import get_data, make_synthetic_trajectories, save_npz
+    from tvqvae_tpu_torch.train.runner import train_stage1
+
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trajectories.npz")
+        save_npz(path, *make_synthetic_trajectories(n=TRAIN_SERIES, channels=C, length=L, seed=7))
+        data = get_data(path, cfg.dataset.features)
+    rec = StepRecorder(torch)
+    torch.cuda.reset_peak_memory_stats()
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    state = train_stage1(cfg, data, max_steps=TRAIN_STEPS, device="cuda", logger=rec,
+                         log_interval=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vq_kernel.launch_count
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_test = len(data.X_test)
+    val_batches = -(-n_test // min(cfg.dataset.batch_sizes["stage1"], n_test))
+    expected = 2 * TRAIN_STEPS + 2 * val_batches * len(rec.val)
+    check(len(rec.losses) == TRAIN_STEPS and len(rec.val) >= 1, "train_stage1 logged too little")
+    check(launches == expected, f"VQ kernel launches {launches} in training, expected {expected}")
+    losses = [float(v) for v in rec.losses]
+    check(bool(np.isfinite(losses).all()), f"non-finite training loss: {losses}")
+    warm = int(TRAIN_STEPS * cfg.exp_params.linear_warmup_rate)
+    first, last = float(np.mean(losses[warm:warm + 5])), float(np.mean(losses[-5:]))
+    check(last < first, f"loss did not fall: steps {warm + 1}-{warm + 5} {first}, last 5 {last}")
+    ms = rec.events[warm].elapsed_time(rec.events[-1]) / (TRAIN_STEPS - 1 - warm)
+    val = rec.val[-1][1]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    print(f"[train] published width B={B} C={C} L={L} ({n_params / 1e6:.1f} M parameters), "
+          f"{len(data.X_train)} train / {n_test} test series: {TRAIN_STEPS} steps in {wall:.1f} s (with init, upload and validation); "
+          f"steady {ms:.2f} ms/step = {1e3 / ms:.3f} steps/s (CUDA events, steps "
+          f"{warm + 2}-{TRAIN_STEPS}); peak memory {peak_gb:.2f} GiB", flush=True)
+    print(f"[train] loss step 1 {losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; mean of "
+          f"steps {warm + 1}-{warm + 5} {first:.4f}, of the last 5 {last:.4f}; val loss "
+          f"{val['val/loss']:.4f} at step {rec.val[-1][0]}; VQ kernel launches {launches} "
+          f"(2 per step, 2 per validation batch: {len(rec.val)} x {val_batches})", flush=True)
+    return state, data, ms, launches
+
+
+def published_train_twin_check(torch, trained, data, device="cuda"):
+    """One more training step at the published width from two copies of the
+    trained model and codebooks, on the same batch and dropout seed: one
+    through the VQ kernel, one with its plain twin in its place. The kernel's
+    counts and row sums feed the EMA here, so: indices equal, losses within
+    1e-5 relative, and cluster_size, embed_avg and embed within 1e-4 + 1e-4
+    relative (the row sums add ~M/K rows of D=128 in another order)."""
+    import copy
+
+    from tvqvae_tpu_torch.models import vq as vq_module
+    from tvqvae_tpu_torch.ops import vq_kernel
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+
+    x = torch.from_numpy(data.X_train[B:2 * B]).to(device)
+    step = make_stage1_train_step()
+    runs = {}
+    for name, assign in (("kernel", vq_kernel.nearest_codes_stats),
+                         ("plain", vq_kernel.nearest_codes_stats_plain)):
+        state = create_stage1_state(copy.deepcopy(trained.model), trained.vq_l, trained.vq_h,
+                                    functools.partial(adamw, learning_rate=1e-4))
+        seen = []
+        state.model.register_forward_hook(
+            lambda m, i, o, seen=seen: seen.append((o.vq_l.indices, o.vq_h.indices)))
+        vq_module.nearest_codes_stats = assign
+        try:
+            loss = step(state, x, torch.Generator(device=device).manual_seed(13))[1]["loss"].item()
+        finally:
+            vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats
+        runs[name] = (state, seen[0], loss)
+    (k_state, k_idx, k_loss), (p_state, p_idx, p_loss) = runs["kernel"], runs["plain"]
+    for band, a, b in zip(("lf", "hf"), k_idx, p_idx):
+        check(torch.equal(a, b), f"published-width train step: {band} indices differ from plain")
+    check(abs(k_loss - p_loss) <= 1e-5 * abs(p_loss),
+          f"published-width train step: loss {k_loss} vs plain {p_loss}")
+    errs = {}
+    for band in ("vq_l", "vq_h"):
+        for f in ("embed", "embed_avg", "cluster_size"):
+            a, b = getattr(getattr(k_state, band), f), getattr(getattr(p_state, band), f)
+            errs[f"{band}.{f}"] = float((a - b).abs().max())
+            check(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all()),
+                  f"published-width train step: {band}.{f} off by {errs[f'{band}.{f}']}")
+    print(f"[reference] published-width train step, kernel vs plain VQ twin: indices equal "
+          f"({k_idx[0].numel()} LF, {k_idx[1].numel()} HF tokens), loss {k_loss:.6f} vs "
+          f"{p_loss:.6f}, codebook max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+
+
+def train_profile(torch, state, data, step_ms):
+    """One more training step of the trained state, under the profiler."""
+    from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
+
+    step = make_stage1_train_step()
+    x = torch.from_numpy(data.X_train[:B]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    step(state, x, gen)
+    print_profile(f"train step of {B}", lambda: step(state, x, gen), step_ms)
+
+
+def biases_cancelled_by_batchnorm(model) -> dict:
+    """{bias name: weight name of the same conv} for every bias whose
+    per-channel constant reaches a train-mode BatchNorm through
+    shift-invariant linear ops only, so that its gradient is 0 up to
+    rounding: each conv right before a BatchNorm (``EncBlock2d.Conv_0``,
+    ``ResBlock2d.Conv_0``, ``DecBlock2d.ConvTranspose2dTorch_0``), and the
+    ``Conv_1`` of a ResBlock followed by an EncBlock2d (edge padding and a
+    VALID conv keep a constant channel constant). Adam's m / (sqrt(v) + eps)
+    turns that rounding noise into steps of up to lr, so two correct
+    implementations drift apart in these biases (and in the running mean of
+    the BatchNorm each feeds) by up to 2 * sum(lr_t)."""
+    from tvqvae_tpu_torch.models.layers import DecBlock2d, EncBlock2d, NamedStack, ResBlock2d
+
+    out = {}
+    for sname, stack in model.named_children():
+        if not isinstance(stack, NamedStack):
             continue
-        busy_ms = sum(d for _, d in events) / 1e3
-        by_name = {}
-        for name, d in events:
-            n, t = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, t + d)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        print(f"[profile] {label} of {B}: device busy {busy_ms:.2f} ms over {len(events)} "
-              f"device events; unprofiled wall {wall_ms[label]:.2f} ms, idle share "
-              f"{max(0.0, 1 - busy_ms / wall_ms[label]):.3f}; profiled wall {prof_ms:.2f} ms",
-              flush=True)
-        for name, (n, t) in top:
-            print(f"[profile]   {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
-        for ms, n, key, shapes in convs[:6]:
-            print(f"[profile]   conv {ms:8.3f} ms  x{n:<3d} {key[6:]} {shapes}", flush=True)
+        blocks = list(stack.named_children())
+        for i, (bname, block) in enumerate(blocks):
+            convs = {EncBlock2d: ["Conv_0"], ResBlock2d: ["Conv_0"],
+                     DecBlock2d: ["ConvTranspose2dTorch_0"]}.get(type(block), [])
+            if isinstance(block, ResBlock2d) and i + 1 < len(blocks) \
+                    and isinstance(blocks[i + 1][1], EncBlock2d):
+                convs = convs + ["Conv_1"]
+            for c in convs:
+                out[f"{sname}.{bname}.{c}.bias"] = f"{sname}.{bname}.{c}.weight"
+    return out
+
+
+def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
+    """Three training steps of the same seeded small model (dropout 0) on the
+    CPU (plain VQ) and on the card (kernel): indices equal at every step,
+    losses within 1e-4 relative, codebooks and BatchNorm variances within
+    1e-4, parameters within 1e-4; the biases whose gradient a BatchNorm
+    cancels (and the running means after them) within 1e-4 + 2 * sum(lr_t),
+    the drift Adam makes of their rounding noise."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+    from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
+
+    cfg = Config.from_dict({**SMALL_CFG, "encoder": {**SMALL_CFG["encoder"], "dropout": 0.0},
+                            "decoder": {**SMALL_CFG["decoder"], "dropout": 0.0}})
+    Ls, n = 127, 8
+    spec = Stage1Spec.from_config(cfg, Ls, C)
+    schedule = warmup_cosine_schedule(cfg.exp_params.lr, TRAIN_STEPS)
+    xs = np.random.default_rng(8).normal(size=(steps, n, C, Ls)).astype(np.float32)
+    runs = []
+    for dev in devices:
+        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
+        state = create_stage1_state(model, vq_l, vq_h,
+                                    functools.partial(adamw, learning_rate=schedule, weight_decay=0.01))
+        seen = []
+        model.register_forward_hook(
+            lambda m, i, o, seen=seen: seen.append((o.vq_l.indices.cpu(), o.vq_h.indices.cpu())))
+        step = make_stage1_train_step()
+        losses = [step(state, torch.from_numpy(x).to(dev))[1]["loss"].item() for x in xs]
+        runs.append((state, seen, losses))
+    (ref, ref_seen, ref_loss), (dut, dut_seen, dut_loss) = runs
+    for t, (a, b) in enumerate(zip(ref_seen, dut_seen)):
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"small model training: indices differ at step {t + 1}")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
+    check(loss_err <= 1e-4, f"small model training: losses off by {loss_err} relative")
+    cb_err = max(float((getattr(getattr(ref, band), f) - getattr(getattr(dut, band), f).cpu())
+                       .abs().max())
+                 for band in ("vq_l", "vq_h") for f in ("embed", "embed_avg", "cluster_size"))
+    check(cb_err <= 1e-4, f"small model training: codebooks off by {cb_err}")
+    noise = 2 * sum(schedule(t) for t in range(steps))
+    cancelled = biases_cancelled_by_batchnorm(ref.model)
+    worst = {"tight": 0.0, "cancelled": 0.0}
+    for k, a in ref.model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = float((a - dut.model.state_dict()[k].cpu()).abs().max())
+        loose = k in cancelled or k.endswith("running_mean")
+        check(err <= 1e-4 + (noise if loose else 0.0), f"small model training: {k} off by {err}")
+        kind = "cancelled" if loose else "tight"
+        worst[kind] = max(worst[kind], err)
+    print(f"[reference] small model training, {steps} steps, card vs CPU: indices equal, losses "
+          f"{dut_loss} vs {ref_loss}, rel err {loss_err:.3g}, codebooks {cb_err:.3g}, parameters and BN variances "
+          f"{worst['tight']:.3g}, BN-cancelled biases and running means {worst['cancelled']:.3g} "
+          f"(bound {1e-4 + noise:.3g})", flush=True)
 
 
 def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
@@ -354,8 +589,11 @@ def main():
           f"{vq_kernel.launch_count - before} (2 per batch)", flush=True)
 
     serving_phase(sampler)
-    launches = vq_kernel.launch_count
-    check(launches > 0, "the main path never launched the VQ kernel")
+    serve_launches = vq_kernel.launch_count
+    check(serve_launches > 0, "the served path never launched the VQ kernel")
+
+    # ---- training, counted on its own ---------------------------------
+    trained, data, step_ms, train_launches = train_phase(torch, vq_kernel)
 
     # ---- checks after the counted run ---------------------------------
     with torch.inference_mode():
@@ -374,8 +612,11 @@ def main():
             check(err <= 1e-4, f"reconstruct differs from the plain VQ path by {err}")
     print("[reconstruct] tokens equal to the plain VQ version on the card", flush=True)
     small_model_check(torch, Config, TrainedModelSampler)
+    small_train_check(torch)
+    published_train_twin_check(torch, trained, data)
     published_width_check(torch, Config, TrainedModelSampler, sampler, series)
     profile_phase(torch, sampler, series, wall_ms)
+    train_profile(torch, trained, data, step_ms)
 
     main_numbers = kernels[MAIN_SHAPE]
     entry = {
@@ -383,7 +624,8 @@ def main():
         "route": "cuda",
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
-        "launches": launches,
+        "launches": serve_launches + train_launches,
+        "launches_by_path": {"serve": serve_launches, "train": train_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

@@ -27,8 +27,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     decode_tokens,
     encode_tokens,
 )
-from tvqvae_tpu_torch.models.stage1 import Stage1Model, Stage1Spec
-from tvqvae_tpu_torch.models.vq import init_codebook
+from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.train.stage2 import make_sampling_fn
 from tvqvae_tpu_torch.utils.convert import prior_from_jax, stage1_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
@@ -81,9 +80,8 @@ class TrainedModelSampler:
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels)
-        model = init_weights_(Stage1Model(spec), g)
-        vq_l, vq_h = init_codebook(spec.vq_l, g), init_codebook(spec.vq_h, g)
-        frozen = FrozenStage1(model.to(dev).eval(), vq_l.to(dev), vq_h.to(dev))
+        model, vq_l, vq_h = init_stage1(spec, g, dev)
+        frozen = FrozenStage1(model.eval(), vq_l, vq_h)
         t_l, t_h = (init_weights_(t, g) for t in build_transformers(cfg, spec, n_classes))
         self = cls.__new__(cls)
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev)

@@ -11,9 +11,16 @@ by leaf.
     computes; the converter flips the kernel.
   - ``EncBlock2d`` pads with edge ("replicate") values and then runs a VALID
     stride-(1, 2) conv, as the JAX block does.
-  - BatchNorm is eval-mode ``nn.BatchNorm2d`` (eps 1e-5) over the running
-    statistics. Training, with the JAX package's biased-variance statistics
-    and flax momentum, belongs to the training slice.
+  - ``BatchNorm2d`` has flax's train semantics (``nn.BatchNorm(momentum=
+    0.9)``): it normalises with the batch's biased variance and moves the
+    running statistics 0.1 of the way to the batch mean and *biased*
+    variance (torch's own update takes the unbiased one). In eval mode it is
+    ``nn.BatchNorm2d`` over the running statistics.
+  - Only ``ResBlock2d`` drops out (after ``Conv_1``, before the skip add),
+    as in the JAX stacks, which build ``EncBlock2d``/``DecBlock2d`` with rate
+    0. The masks come from the ``torch.Generator`` the caller passes through
+    ``NamedStack.forward``; a kept value is ``x / keep``, as
+    ``flax.linen.Dropout`` computes it.
 """
 
 import math
@@ -36,29 +43,61 @@ class Snake(nn.Module):
         return snake(x, self.a.view(1, -1, *([1] * (x.dim() - 2))))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) with flax's train-mode statistics."""
+
+    MOMENTUM = 0.9  # flax convention: the weight of the old running value
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        # batch statistics (biased variance); the running buffers are not passed
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Inverted dropout: ``x / keep`` where kept (probability ``1 - rate``), else 0."""
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator).bool()
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _geometry(frequency_independence: bool, kw: int):
     """(kernel, padding) of a block: (1, kw)/(0, 1) or (3, kw)/(1, 1)."""
     return ((1, kw), (0, 1)) if frequency_independence else ((3, kw), (1, 1))
 
 
 class ResBlock2d(nn.Module):
-    """Snake -> conv -> BN -> Snake -> conv, plus a 1x1-projected skip when
-    the channel count changes ('same' padding; dropout is identity in eval)."""
+    """Snake -> conv -> BN -> Snake -> conv -> dropout, plus a 1x1-projected
+    skip when the channel count changes ('same' padding; dropout only in
+    train mode)."""
 
-    def __init__(self, in_channels: int, out_channels: int, frequency_independence: bool):
+    def __init__(self, in_channels: int, out_channels: int, frequency_independence: bool,
+                 dropout: float = 0.0):
         super().__init__()
         ksize, pad = _geometry(frequency_independence, 3)
+        self.dropout = dropout
         self.Snake_0 = Snake(in_channels)
         self.Conv_0 = nn.Conv2d(in_channels, out_channels, ksize, padding=pad)
-        self.BatchNorm_0 = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm2d(out_channels)
         self.Snake_1 = Snake(out_channels)
         self.Conv_1 = nn.Conv2d(out_channels, out_channels, ksize, padding=pad)
         if in_channels != out_channels:
             self.Conv_2 = nn.Conv2d(in_channels, out_channels, 1)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.Conv_0(self.Snake_0(x))
         h = self.Conv_1(self.Snake_1(self.BatchNorm_0(h)))
+        if self.training and self.dropout > 0.0:
+            h = dropout(h, self.dropout, generator)
         skip = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return skip + h
 
@@ -70,7 +109,7 @@ class EncBlock2d(nn.Module):
         super().__init__()
         ksize, self.pad = _geometry(frequency_independence, 4)
         self.Conv_0 = nn.Conv2d(in_channels, out_channels, ksize, stride=(1, 2))
-        self.BatchNorm_0 = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm2d(out_channels)
         self.Snake_0 = Snake(out_channels)
 
     def forward(self, x):
@@ -93,7 +132,7 @@ class DecBlock2d(nn.Module):
         self.ConvTranspose2dTorch_0 = conv_transpose(
             in_channels, out_channels, frequency_independence
         )
-        self.BatchNorm_0 = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm2d(out_channels)
         self.Snake_0 = Snake(out_channels)
 
     def forward(self, x):
@@ -115,6 +154,12 @@ class NamedStack(nn.Sequential):
             counts[kind] = n + 1
             named[f"{kind}_{n}"] = block
         super().__init__(named)
+
+    def forward(self, x, generator=None):
+        """Run the blocks in order; ``generator`` draws the ResBlocks' dropout masks."""
+        for block in self:
+            x = block(x, generator) if isinstance(block, ResBlock2d) else block(x)
+        return x
 
 
 @torch.no_grad()

@@ -7,7 +7,8 @@ output width is W' * 2^(num_halvings+1). The STFT, band copy and iSTFT live
 outside the stacks (``models/stage1.py``), as in the JAX package.
 
 The stacks take and return NCHW maps: (B, 2C, H, W) -> (B, hid_dim, H', W')
--> (B, 2C, H, W'').
+-> (B, 2C, H, W''). ``dropout`` reaches the ResBlocks only, as in the JAX
+stacks (their Enc/DecBlocks take no rate).
 """
 
 import torch
@@ -23,15 +24,15 @@ class VQVAEEncoder(NamedStack):
 
     def __init__(self, in_channels: int, init_dim: int, hid_dim: int,
                  num_halvings: int, n_resnet_blocks: int,
-                 frequency_independence: bool = False):
+                 frequency_independence: bool = False, dropout: float = 0.0):
         fi = frequency_independence
         d = init_dim
         blocks = [EncBlock2d(in_channels, d, fi)]
         for _ in range(num_halvings - 1):
             blocks.append(EncBlock2d(d, 2 * d, fi))
             d *= 2
-            blocks += [ResBlock2d(d, d, fi) for _ in range(n_resnet_blocks)]
-        blocks.append(ResBlock2d(d, hid_dim, fi))
+            blocks += [ResBlock2d(d, d, fi, dropout) for _ in range(n_resnet_blocks)]
+        blocks.append(ResBlock2d(d, hid_dim, fi, dropout))
         super().__init__(blocks)
 
 
@@ -40,13 +41,13 @@ class VQVAEDecoder(NamedStack):
 
     def __init__(self, init_dim: int, hid_dim: int, out_channels: int,
                  num_halvings: int, n_resnet_blocks: int,
-                 frequency_independence: bool = False):
+                 frequency_independence: bool = False, dropout: float = 0.0):
         fi = frequency_independence
         k = num_halvings
         d = init_dim * 2 ** (k - 1) if k >= 1 else init_dim
-        blocks = [ResBlock2d(hid_dim, d, fi)]
+        blocks = [ResBlock2d(hid_dim, d, fi, dropout)]
         for _ in range(k - 1):
-            blocks += [ResBlock2d(d, d, fi) for _ in range(n_resnet_blocks)]
+            blocks += [ResBlock2d(d, d, fi, dropout) for _ in range(n_resnet_blocks)]
             blocks.append(DecBlock2d(d, d // 2, fi))
             d //= 2
         blocks.append(conv_transpose(d, out_channels, fi))
