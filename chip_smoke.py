@@ -22,15 +22,23 @@ It needs no JAX and no network. Phases, each fatal on failure:
      synthetic series (288 train, 32 test): two VQ kernel launches per step
      and per validation batch, a finite loss that falls after the warmup,
      steady ms per step (CUDA events), peak memory.
-  8. checks after the counted runs: the reconstruct tokens against the
+  8. stage 2: the counters set to 0 again, the trained stage 1 frozen and
+     ``train_stage2`` at the published width (priors 128x4Lx2H and
+     32x1Lx1H, B=16, dropout 0.3, p_unconditional 0.2) for 200 steps on the
+     precomputed-token path: the sweep's VQ launches (2 per 64-series
+     batch), a finite loss that falls, steady ms per step past a 20-step
+     warmup (CUDA events), peak memory.
+  9. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
-     three training steps; one more published-width training step from
-     the trained state through the VQ kernel and through its plain twin
-     (indices and EMA codebook state); and two series at the published
-     width through the card and the CPU.
-  9. profile: device time by kernel and the device's idle share over one
-     sample batch, one reconstruct batch and one training step
+     three training steps of each stage; one more published-width training
+     step from the trained state through the VQ kernel and through its
+     plain twin (indices and EMA codebook state); two series at the
+     published width through the card and the CPU; the stage-2 sweep's
+     tokens against the plain VQ version's; three on-the-fly stage-2 steps
+     against the token path; a 32-batch sampled from the trained priors.
+ 10. profile: device time by kernel and the device's idle share over one
+     sample batch, one reconstruct batch, one training step of each stage
      (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
@@ -53,11 +61,15 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-KERNEL_SHAPES = [(864, 32, 128), (3456, 32, 128), (3456, 512, 128), (3456, 2048, 128)]
+# M = 27 or 108 tokens a series times 16 (a stage-2 batch), 32 (serving,
+# stage 1) or 64 (the stage-2 sweep); then the K sweep
+KERNEL_SHAPES = [(432, 32, 128), (864, 32, 128), (1728, 32, 128), (3456, 32, 128),
+                 (6912, 32, 128), (3456, 512, 128), (3456, 2048, 128)]
 CHECK_SHAPES = KERNEL_SHAPES + [(865, 33, 20)]  # a ragged shape: 4-byte copies, padded dims
 MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two per batch
 B, C, L, N_CLASSES = 32, 4, 4633, 5
 TRAIN_STEPS, TRAIN_SERIES = 40, 320
+STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 200, 20, 64
 VQ_KERNELS = ("assign_kernel", "merge_stats_kernel", "final_kernel")  # csrc/vq_nearest.cu
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
@@ -130,14 +142,17 @@ def kernel_phase(torch, vq_kernel):
         d_p = dist[rows, p_idx[rows].long()]
         near = (d_k - d_p).abs() <= 1e-5 * d_p.abs().clamp_min(1e-30)
         check(bool(near.all()), f"kernel idx differs from plain beyond ties at {(M, K, D)}")
-        # the statistics of the kernel's own assignment, computed plainly
+        # the statistics of the kernel's own assignment, computed plainly; the
+        # row sums in float64 (exact here), and the kernel's float32 sums held
+        # to the rounding bound of any order of n additions: (n-1) 2^-24 sum|x|
         r_cnt = torch.bincount(idx.long(), minlength=K).float()
-        r_es = torch.zeros_like(embed).index_add_(0, idx.long(), flat)
         check(torch.equal(cnt, r_cnt), f"counts differ at {(M, K, D)}")
-        # 1e-4 plus 1e-6 relative: both sum ~M/K float32 rows, in another order
-        err = float((es - r_es).abs().max())
-        check(bool(((es - r_es).abs() <= 1e-4 + 1e-6 * r_es.abs()).all()),
-              f"embed_sum off by {err} at {(M, K, D)}")
+        r_es, abs_sum = (torch.zeros(K, D, dtype=torch.float64, device="cuda")
+                         .index_add_(0, idx.long(), v.double()) for v in (flat, flat.abs()))
+        bound = (r_cnt.double() - 1).clamp_min(0)[:, None] * 2.0 ** -24 * abs_sum
+        err = float((es.double() - r_es).abs().max())
+        check(bool(((es.double() - r_es).abs() <= bound).all()),
+              f"embed_sum off by {err} at {(M, K, D)}, beyond float32 rounding")
         line = (f"[kernel] vq_nearest_stats M={M} K={K} D={D}: idx rows off {len(rows)} "
                 f"(near-ties {int(near.sum())}), embed_sum err {err:.3g}")
         if (M, K, D) not in KERNEL_SHAPES:
@@ -369,6 +384,205 @@ def published_train_twin_check(torch, trained, data, device="cuda"):
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
 
 
+def stage2_phase(torch, vq_kernel, trained, data, device="cuda"):
+    """``train_stage2`` at the published width over the frozen trained stage
+    1, counted; -> (frozen, state, steady ms per step, VQ kernel launches)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1
+    from tvqvae_tpu_torch.train.runner import train_stage2
+
+    cfg = Config()
+    frozen = FrozenStage1.from_stage1_state(trained)
+    rec = StepRecorder(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30  # the earlier phases' models and states
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    state = train_stage2(cfg, data, frozen, max_steps=STAGE2_STEPS, device=device, logger=rec,
+                         log_interval=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vq_kernel.launch_count
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    N = len(data.X_train)
+    expected = 2 * -(-N // SWEEP_BATCH)  # the sweep only: the token steps run no encoder
+    check(launches == expected, f"VQ kernel launches {launches} in stage 2, expected {expected}")
+    check(len(rec.losses) == STAGE2_STEPS and not rec.val, "train_stage2 logged wrongly")
+    losses = [float(v) for v in rec.losses]
+    check(bool(np.isfinite(losses).all()), f"non-finite stage-2 loss: {losses}")
+    w = STAGE2_WARMUP
+    first, last = float(np.mean(losses[w:2 * w])), float(np.mean(losses[-w:]))
+    check(last < first, f"stage-2 loss did not fall: steps {w + 1}-{2 * w} {first}, last {w} {last}")
+    ms = rec.events[w].elapsed_time(rec.events[-1]) / (STAGE2_STEPS - 1 - w)
+    n_params = sum(p.numel() for t in (state.t_l, state.t_h) for p in t.parameters())
+    print(f"[stage2] published width, priors {n_params / 1e6:.3f} M parameters, batch "
+          f"{cfg.dataset.batch_sizes['stage2']}, {N} train series: {STAGE2_STEPS} steps in "
+          f"{wall:.1f} s (with init and the token sweep); steady {ms:.3f} ms/step = "
+          f"{1e3 / ms:.1f} steps/s (CUDA events, steps {w + 2}-{STAGE2_STEPS}); peak memory "
+          f"{peak_gb:.2f} GiB, of which {peak_gb - base_gb:.3f} GiB above what was allocated "
+          f"before", flush=True)
+    print(f"[stage2] loss step 1 {losses[0]:.4f}, step {STAGE2_STEPS} {losses[-1]:.4f}; mean of "
+          f"steps {w + 1}-{2 * w} {first:.4f}, of the last {w} {last:.4f}; VQ kernel launches "
+          f"{launches} (the sweep: 2 per {SWEEP_BATCH}-series batch)", flush=True)
+    return frozen, state, ms, launches
+
+
+def stage2_checks(torch, vq_kernel, frozen, state, data, device="cuda"):
+    """After the counted run: the sweep of the whole train split through the
+    kernel and through its plain twin (tokens equal; the sweep's time, by
+    host clock with a synchronise); three on-the-fly steps from a copy of
+    the initial priors against the token path (step 1: tokens and loss
+    equal; steps 2-3: losses within 1e-5 relative, the backward's atomic
+    sums being unordered); and one 32-batch sampled from the trained priors
+    (finite series, tokens in range). -> the token path's tensors."""
+    import copy
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import make_batches
+    from tvqvae_tpu_torch.models import vq as vq_module
+    from tvqvae_tpu_torch.models.maskgit import MaskGITSpec, build_transformers, iterative_decoding
+    from tvqvae_tpu_torch.train.runner import _adamw
+    from tvqvae_tpu_torch.train.stage2 import (
+        create_stage2_state,
+        init_stage2,
+        make_sampling_fn,
+        make_stage2_train_step,
+        make_token_encode_fn,
+        precompute_token_dataset,
+        stage2_train_step_tokens,
+    )
+
+    cfg = Config()
+    X = torch.from_numpy(data.X_train).to(device)
+    precompute_token_dataset(frozen, X)  # warm
+    sweeps = {}
+    for name, assign in (("kernel", vq_kernel.nearest_codes_stats),
+                         ("plain", vq_kernel.nearest_codes_stats_plain)):
+        vq_module.nearest_codes_stats = assign
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = precompute_token_dataset(frozen, X, SWEEP_BATCH)
+            sweeps[name] = (toks, 1e3 * (time.perf_counter() - t0))
+        finally:
+            vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats
+    (k_l, k_h), k_ms = sweeps["kernel"]
+    (p_l, p_h), p_ms = sweeps["plain"]
+    check(np.array_equal(k_l, p_l) and np.array_equal(k_h, p_h),
+          "stage-2 sweep tokens differ from the plain VQ version's")
+    print(f"[stage2] sweep of {len(k_l)} series ({k_l.shape[1]} LF + {k_h.shape[1]} HF tokens "
+          f"each): {k_ms:.2f} ms through the kernel, {p_ms:.2f} ms through the plain twin; "
+          f"tokens equal", flush=True)
+
+    tok_l, tok_h = torch.from_numpy(k_l).to(device), torch.from_numpy(k_h).to(device)
+    y = torch.from_numpy(data.y_train).to(device)
+    priors = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
+                         torch.Generator().manual_seed(0), device)
+    fly_state = create_stage2_state(*priors, _adamw(cfg, STAGE2_STEPS))
+    tok_state = create_stage2_state(*(copy.deepcopy(t) for t in priors),
+                                    _adamw(cfg, STAGE2_STEPS))
+    fly, tok, enc = (make_stage2_train_step(frozen), stage2_train_step_tokens,
+                     make_token_encode_fn(frozen))
+    g_fly, g_tok = (torch.Generator(device=device).manual_seed(1) for _ in range(2))
+    batches = make_batches(np.arange(len(k_l)), None, cfg.dataset.batch_sizes["stage2"],
+                           shuffle=True, seed=0)
+    pairs = []
+    for t in range(3):
+        idx = torch.from_numpy(next(batches)[0]).to(device)
+        if t == 0:
+            s_l, s_h = enc(X[idx])
+            check(torch.equal(s_l, tok_l[idx]) and torch.equal(s_h, tok_h[idx]),
+                  "on-the-fly step 1: tokens differ from the sweep's")
+        a = fly(fly_state, X[idx], y[idx], g_fly)[1]["loss"].item()
+        b = tok(tok_state, tok_l[idx], tok_h[idx], y[idx], g_tok)[1]["loss"].item()
+        check(a == b if t == 0 else abs(a - b) <= 1e-5 * abs(b),
+              f"on-the-fly stage-2 step {t + 1}: loss {a} vs the token path's {b}")
+        pairs.append((a, b))
+    print(f"[stage2] on-the-fly vs token path, 3 steps from the same initial priors: step-1 "
+          f"tokens equal, losses {pairs}", flush=True)
+
+    spec = MaskGITSpec.from_config(cfg, frozen.model.spec)
+    sample = make_sampling_fn(frozen, state.t_l, state.t_h, spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_l, x_h, x = sample(B, None, torch.Generator(device=device).manual_seed(21))
+    torch.cuda.synchronize()
+    dt = 1e3 * (time.perf_counter() - t0)
+    check(tuple(x.shape) == (B, C, L) and bool(torch.isfinite(x).all()), "bad stage-2 samples")
+    with torch.inference_mode():
+        s_l, s_h = iterative_decoding(spec, lambda s, c: state.t_l(s, None, c),
+                                      lambda a, b, c: state.t_h(a, b, c), B, device=device,
+                                      generator=torch.Generator(device=device).manual_seed(21))
+    check(bool(((s_l >= 0) & (s_l < spec.mask_token_l)).all()
+               and ((s_h >= 0) & (s_h < spec.mask_token_h)).all()), "sampled tokens out of range")
+    print(f"[stage2] sampled {B} series from the trained priors in {dt:.1f} ms: finite, tokens "
+          f"in range ({len(torch.unique(s_l))} LF / {len(torch.unique(s_h))} HF codes used)",
+          flush=True)
+    return tok_l, tok_h, y
+
+
+def small_stage2_check(torch, devices=("cpu", "cuda"), steps=3):
+    """Three on-the-fly stage-2 steps of the same seeded small stage 1 and
+    priors (dropouts and p_unconditional 0) on the CPU (plain VQ) and on the
+    card (kernel), with the same masking noise: tokens equal at every step,
+    losses within 1e-5 relative, parameters and the HF BatchNorm statistics
+    within 1e-4."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.train.runner import _adamw
+    from tvqvae_tpu_torch.train.stage2 import (
+        create_stage2_state,
+        init_stage2,
+        make_stage2_train_step,
+        make_token_encode_fn,
+    )
+
+    off = {"p_unconditional": 0.0, "model_dropout": 0.0, "emb_dropout": 0.0}
+    mg = SMALL_CFG["MaskGIT"]
+    cfg = Config.from_dict({**SMALL_CFG, "MaskGIT": {
+        **mg, "prior_model_l": {**mg["prior_model_l"], **off},
+        "prior_model_h": {**mg["prior_model_h"], **off}}})
+    Ls, n = 127, 8
+    spec = Stage1Spec.from_config(cfg, Ls, C)
+    rng = np.random.default_rng(9)
+    xs = rng.normal(size=(steps, n, C, Ls)).astype(np.float32)
+    ys = rng.integers(0, 3, size=(steps, n, 1))
+    noise = [{band: (torch.from_numpy(rng.uniform(size=n).astype(np.float32)),
+                     torch.from_numpy(rng.uniform(size=(n, tok)).astype(np.float32)))
+              for band, tok in (("l", spec.tokens_l), ("h", spec.tokens_h))} for _ in range(steps)]
+    runs = []
+    for dev in devices:
+        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
+        frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
+        priors = init_stage2(*build_transformers(cfg, spec, 3), torch.Generator().manual_seed(4), dev)
+        state = create_stage2_state(*priors, _adamw(cfg, TRAIN_STEPS))
+        step, enc = make_stage2_train_step(frozen), make_token_encode_fn(frozen)
+        toks, losses = [], []
+        for x, yb, nz in zip(xs, ys, noise):
+            xt = torch.from_numpy(x).to(dev)
+            toks.append(tuple(s.cpu() for s in enc(xt)))
+            losses.append(step(state, xt, torch.from_numpy(yb).to(dev), None, nz)[1]["loss"].item())
+        runs.append((state, toks, losses))
+    (ref, ref_tok, ref_loss), (dut, dut_tok, dut_loss) = runs
+    for t, (a, b) in enumerate(zip(ref_tok, dut_tok)):
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"small stage 2: tokens differ at step {t + 1}")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
+    check(loss_err <= 1e-5, f"small stage 2: losses off by {loss_err} relative")
+    worst = 0.0
+    for a_mod, b_mod in ((ref.t_l, dut.t_l), (ref.t_h, dut.t_h)):
+        b_sd = b_mod.state_dict()
+        for k, a in a_mod.state_dict().items():
+            err = float((a.float() - b_sd[k].cpu().float()).abs().max())
+            check(err <= 1e-4, f"small stage 2: {k} off by {err}")
+            worst = max(worst, err)
+    print(f"[reference] small stage 2, {steps} steps, card vs CPU: tokens equal, losses "
+          f"{dut_loss} vs {ref_loss}, rel err {loss_err:.3g}, parameters and HF BN statistics "
+          f"{worst:.3g}", flush=True)
+
+
 def train_profile(torch, state, data, step_ms):
     """One more training step of the trained state, under the profiler."""
     from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
@@ -378,6 +592,17 @@ def train_profile(torch, state, data, step_ms):
     gen = torch.Generator(device="cuda").manual_seed(11)
     step(state, x, gen)
     print_profile(f"train step of {B}", lambda: step(state, x, gen), step_ms)
+
+
+def stage2_profile(torch, state, tok_l, tok_h, y, step_ms, device="cuda"):
+    """One more token step of the trained priors, under the profiler."""
+    from tvqvae_tpu_torch.train.stage2 import stage2_train_step_tokens as step
+
+    idx = torch.arange(16, device=device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    step(state, tok_l[idx], tok_h[idx], y[idx], gen)
+    print_profile("stage-2 step of 16", lambda: step(state, tok_l[idx], tok_h[idx], y[idx], gen),
+                  step_ms)
 
 
 def biases_cancelled_by_batchnorm(model) -> dict:
@@ -412,8 +637,8 @@ def biases_cancelled_by_batchnorm(model) -> dict:
 def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
     """Three training steps of the same seeded small model (dropout 0) on the
     CPU (plain VQ) and on the card (kernel): indices equal at every step,
-    losses within 1e-4 relative, codebooks and BatchNorm variances within
-    1e-4, parameters within 1e-4; the biases whose gradient a BatchNorm
+    losses within 1e-4 relative, codebooks within 1e-4 of 1 + |value|,
+    BatchNorm variances and parameters within 1e-4; the biases whose gradient a BatchNorm
     cancels (and the running means after them) within 1e-4 + 2 * sum(lr_t),
     the drift Adam makes of their rounding noise."""
     from tvqvae_tpu_torch.config import Config
@@ -445,10 +670,15 @@ def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
               f"small model training: indices differ at step {t + 1}")
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
     check(loss_err <= 1e-4, f"small model training: losses off by {loss_err} relative")
-    cb_err = max(float((getattr(getattr(ref, band), f) - getattr(getattr(dut, band), f).cpu())
-                       .abs().max())
-                 for band in ("vq_l", "vq_h") for f in ("embed", "embed_avg", "cluster_size"))
-    check(cb_err <= 1e-4, f"small model training: codebooks off by {cb_err}")
+    # relative to the value too: a code no row has chosen yet has embed =
+    # embed_avg / ~eps, ~1e5 here, where one float32 ulp is 2^-6
+    cb_err = 0.0
+    for band in ("vq_l", "vq_h"):
+        for f in ("embed", "embed_avg", "cluster_size"):
+            a = getattr(getattr(ref, band), f)
+            d = (a - getattr(getattr(dut, band), f).cpu()).abs() / (1.0 + a.abs())
+            cb_err = max(cb_err, float(d.max()))
+    check(cb_err <= 1e-4, f"small model training: codebooks off by {cb_err} of 1 + |value|")
     noise = 2 * sum(schedule(t) for t in range(steps))
     cancelled = biases_cancelled_by_batchnorm(ref.model)
     worst = {"tight": 0.0, "cancelled": 0.0}
@@ -469,29 +699,47 @@ def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
 def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
     """Two series at the published width through the card's encoders (with
     the VQ kernel) and the same seeded model on the CPU: latents within 1e-4
-    of their scale, and the card's tokens decoded on both devices within
-    1e-4 of the output's scale."""
-    from tvqvae_tpu_torch.models.maskgit import decode_tokens, encode_tokens
+    of their scale, and the card's tokens decoded on the card within 5e-4 of
+    the output's scale of both the CPU's float32 decode and a float64 one,
+    the bound ``tests/test_torch_published_width.py`` holds decoded series
+    to. Both float32 decodes are printed against the float64 one: float32
+    rounding alone takes this decode ~1e-4 of its scale from it on either
+    device (PERF.md section 6)."""
+    import copy
+    import dataclasses
+
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1, decode_tokens, encode_tokens
 
     cpu = TrainedModelSampler.from_init(Config(), L, C, N_CLASSES, seed=0, device="cpu",
                                         batch_size=B)
+    f = cpu.frozen
+    exact = FrozenStage1(copy.deepcopy(f.model).double(), *(
+        dataclasses.replace(vq, embed=vq.embed.double()) for vq in (f.vq_l, f.vq_h)))
     x = torch.from_numpy(series[:2])
+    errs = []
     with torch.inference_mode():
         for band in ("lf", "hf"):
             z_dev = sampler.frozen.model.encode(x.cuda(), band).cpu()
-            z_cpu = cpu.frozen.model.encode(x, band)
+            z_cpu = f.model.encode(x, band)
             z_err = float((z_dev - z_cpu).abs().max() / z_cpu.abs().max())
             s_dev = encode_tokens(sampler.frozen, x.cuda(), band)
-            s_cpu = encode_tokens(cpu.frozen, x, band)
+            s_cpu = encode_tokens(f, x, band)
             flips = int((s_dev.cpu() != s_cpu).sum())
             y_dev = decode_tokens(sampler.frozen, s_dev, band).cpu()
-            y_cpu = decode_tokens(cpu.frozen, s_dev.cpu(), band)
+            y_cpu = decode_tokens(f, s_dev.cpu(), band)
+            y_64 = decode_tokens(exact, s_dev.cpu(), band)
             y_err = float((y_dev - y_cpu).abs().max() / y_cpu.abs().max())
+            dev_64, cpu_64 = (float((y.double() - y_64).abs().max() / y_64.abs().max())
+                              for y in (y_dev, y_cpu))
             print(f"[reference] published width {band}: card vs CPU latents rel err "
                   f"{z_err:.3g}, decode rel err {y_err:.3g}, token flips {flips} of "
-                  f"{s_cpu.numel()}", flush=True)
-            check(z_err <= 1e-4 and y_err <= 1e-4,
-                  f"published width {band}: card vs CPU off by {z_err}, {y_err}")
+                  f"{s_cpu.numel()}; decode vs float64 on the CPU: card {dev_64:.3g}, "
+                  f"CPU float32 {cpu_64:.3g}", flush=True)
+            errs.append((band, z_err, y_err, dev_64))
+    for band, z_err, y_err, dev_64 in errs:
+        check(z_err <= 1e-4 and y_err <= 5e-4 and dev_64 <= 5e-4,
+              f"published width {band}: card vs CPU off by {z_err}, {y_err}; "
+              f"card vs float64 {dev_64}")
 
 
 def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda")):
@@ -594,8 +842,10 @@ def main():
 
     # ---- training, counted on its own ---------------------------------
     trained, data, step_ms, train_launches = train_phase(torch, vq_kernel)
+    frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, trained, data)
 
     # ---- checks after the counted run ---------------------------------
+    rel = 0.0
     with torch.inference_mode():
         for start in range(0, series.shape[0], B):
             xb = torch.from_numpy(series[start:start + B]).cuda()
@@ -607,16 +857,22 @@ def main():
                 check(torch.equal(encode_tokens(sampler.frozen, xb, band), idx_p),
                       f"reconstruct {band} tokens differ from the plain VQ version")
                 plain.append(sampler.frozen.model.decode(lookup_codes(state, idx_p), band))
-            err = float((plain[0] + plain[1]).cpu().sub(torch.from_numpy(
-                rec[start:start + B])).abs().max())
-            check(err <= 1e-4, f"reconstruct differs from the plain VQ path by {err}")
-    print("[reconstruct] tokens equal to the plain VQ version on the card", flush=True)
+            ref = torch.from_numpy(rec[start:start + B])
+            # relative to the output's scale: cuDNN may pick other conv algorithms
+            # as free memory changes between the two decodes
+            rel = max(rel, float((plain[0] + plain[1]).cpu().sub(ref).abs().max() / ref.abs().max()))
+            check(rel <= 1e-4, f"reconstruct differs from the plain VQ path by {rel} of its scale")
+    print(f"[reconstruct] tokens equal to the plain VQ version on the card; decoded series "
+          f"within {rel:.3g} of their scale", flush=True)
     small_model_check(torch, Config, TrainedModelSampler)
     small_train_check(torch)
     published_train_twin_check(torch, trained, data)
     published_width_check(torch, Config, TrainedModelSampler, sampler, series)
+    tok_l, tok_h, y = stage2_checks(torch, vq_kernel, frozen, stage2, data)
+    small_stage2_check(torch)
     profile_phase(torch, sampler, series, wall_ms)
     train_profile(torch, trained, data, step_ms)
+    stage2_profile(torch, stage2, tok_l, tok_h, y, stage2_ms)
 
     main_numbers = kernels[MAIN_SHAPE]
     entry = {
@@ -624,8 +880,9 @@ def main():
         "route": "cuda",
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
-        "launches": serve_launches + train_launches,
-        "launches_by_path": {"serve": serve_launches, "train": train_launches},
+        "launches": serve_launches + train_launches + stage2_launches,
+        "launches_by_path": {"serve": serve_launches, "train": train_launches,
+                             "stage2": stage2_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

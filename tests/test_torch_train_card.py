@@ -1,4 +1,5 @@
-"""The stage-1 training step on the card: the VQ kernel feeding the EMA.
+"""Training on the card: the VQ kernel feeding the stage-1 EMA, and the
+stage-2 token sweep and steps.
 
 Torch only, so the card's machine (no JAX) runs it:
 
@@ -9,7 +10,8 @@ codebooks 8/8, dropout 0) trains on the card twice from the same seeded
 weights: once through the CUDA kernel, once with the VQ's plain twin put in
 its place. cuDNN's backward convolutions are not bit-deterministic, so the
 two are held to tolerances: indices equal at every step, losses to 1e-5
-relative, codebook statistics to 1e-4.
+relative, codebook statistics to 1e-4. Stage 2 runs small priors (16 wide x
+2 layers, 8 x 1) over that stage 1.
 """
 
 import functools
@@ -21,11 +23,18 @@ import torch
 from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.data.dataset import DatasetSplits
 from tvqvae_tpu_torch.models import vq as vq_module
+from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.ops import vq_kernel
 from tvqvae_tpu_torch.train.optim import adamw
 from tvqvae_tpu_torch.train.runner import train_stage1
 from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+from tvqvae_tpu_torch.train.stage2 import (
+    create_stage2_state,
+    init_stage2,
+    precompute_token_dataset,
+    stage2_train_step_tokens,
+)
 from tvqvae_tpu_torch.utils.scaler import MinMaxScaler
 from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
 
@@ -112,6 +121,44 @@ def test_train_stage1_on_card_launches_two_per_step_and_per_val_batch(card):
     assert vq_kernel.launch_count - before == 2 * 10 + 2 * 2
     assert state.step == 10 and state.vq_l.embed.is_cuda
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+@pytest.mark.gpu
+def test_stage2_sweep_matches_plain_twin_and_steps_hold_no_memory_on_card(card, monkeypatch):
+    """The token sweep of 70 series (two 64-row batches, 2 launches each)
+    gives the plain twin's tokens; then 20 token steps leave the allocation
+    unchanged after step 2 (the optimizer's state exists from step 1)."""
+    stage1, _ = _state()
+    frozen = FrozenStage1.from_stage1_state(stage1)
+    X = torch.from_numpy(np.random.default_rng(3).normal(size=(70, C, L)).astype(np.float32)).cuda()
+    before = vq_kernel.launch_count
+    tok_l, tok_h = precompute_token_dataset(frozen, X)
+    assert vq_kernel.launch_count - before == 2 * 2
+    with monkeypatch.context() as m:
+        m.setattr(vq_module, "nearest_codes_stats", vq_kernel.nearest_codes_stats_plain)
+        p_l, p_h = precompute_token_dataset(frozen, X)
+    np.testing.assert_array_equal(tok_l, p_l)
+    np.testing.assert_array_equal(tok_h, p_h)
+
+    cfg = Config.from_dict({**SMALL, "MaskGIT": {
+        "prior_model_l": {"hidden_dim": 16, "n_layers": 2, "heads": 2},
+        "prior_model_h": {"hidden_dim": 8, "n_layers": 1, "heads": 1}}})
+    t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, 3),
+                           torch.Generator().manual_seed(0), "cuda")
+    state = create_stage2_state(t_l, t_h, functools.partial(
+        adamw, learning_rate=warmup_cosine_schedule(1e-3, 40), weight_decay=0.01))
+    step = stage2_train_step_tokens
+    tok_l, tok_h = torch.from_numpy(tok_l).cuda(), torch.from_numpy(tok_h).cuda()
+    y = torch.randint(0, 3, (70, 1), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sizes = []
+    for t in range(22):
+        idx = torch.arange(16 * (t % 4), 16 * (t % 4) + 16, device="cuda")
+        loss = step(state, tok_l[idx], tok_h[idx], y[idx], gen)[1]["loss"]
+        torch.cuda.synchronize()
+        sizes.append(torch.cuda.memory_allocated())
+    assert sizes[2:] == [sizes[2]] * 20, sizes
+    assert torch.isfinite(loss) and state.step == 22
 
 
 def test_train_stage1_refuses_cuda_without_a_card():

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from tvqvae_tpu_torch.config import Config
-from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import (
     FrozenStage1,
     MaskGITSpec,
@@ -28,7 +27,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     encode_tokens,
 )
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
-from tvqvae_tpu_torch.train.stage2 import make_sampling_fn
+from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn
 from tvqvae_tpu_torch.utils.convert import prior_from_jax, stage1_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
@@ -82,7 +81,7 @@ class TrainedModelSampler:
         spec = Stage1Spec.from_config(cfg, input_length, in_channels)
         model, vq_l, vq_h = init_stage1(spec, g, dev)
         frozen = FrozenStage1(model.eval(), vq_l, vq_h)
-        t_l, t_h = (init_weights_(t, g) for t in build_transformers(cfg, spec, n_classes))
+        t_l, t_h = init_stage2(*build_transformers(cfg, spec, n_classes), g, dev)
         self = cls.__new__(cls)
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev)
         return self

@@ -11,11 +11,12 @@ by leaf.
     computes; the converter flips the kernel.
   - ``EncBlock2d`` pads with edge ("replicate") values and then runs a VALID
     stride-(1, 2) conv, as the JAX block does.
-  - ``BatchNorm2d`` has flax's train semantics (``nn.BatchNorm(momentum=
-    0.9)``): it normalises with the batch's biased variance and moves the
+  - ``BatchNorm2d`` and ``BatchNorm1d`` have flax's train semantics
+    (``nn.BatchNorm(momentum=0.9)``): they normalise with the batch's
+    biased variance over every axis but the channel axis (1) and move the
     running statistics 0.1 of the way to the batch mean and *biased*
-    variance (torch's own update takes the unbiased one). In eval mode it is
-    ``nn.BatchNorm2d`` over the running statistics.
+    variance (torch's own update takes the unbiased one). In eval mode they
+    are torch's modules over the running statistics.
   - Only ``ResBlock2d`` drops out (after ``Conv_1``, before the skip add),
     as in the JAX stacks, which build ``EncBlock2d``/``DecBlock2d`` with rate
     0. The masks come from the ``torch.Generator`` the caller passes through
@@ -43,8 +44,8 @@ class Snake(nn.Module):
         return snake(x, self.a.view(1, -1, *([1] * (x.dim() - 2))))
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5) with flax's train-mode statistics."""
+class _FlaxTrainStatistics:
+    """Train mode of a torch BatchNorm with flax's statistics (eps 1e-5)."""
 
     MOMENTUM = 0.9  # flax convention: the weight of the old running value
 
@@ -55,12 +56,20 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())), correction=0)
             m = self.MOMENTUM
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         # batch statistics (biased variance); the running buffers are not passed
         return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm2d(_FlaxTrainStatistics, nn.BatchNorm2d):
+    """Over (B, C, H, W): statistics over B, H and W."""
+
+
+class BatchNorm1d(_FlaxTrainStatistics, nn.BatchNorm1d):
+    """Over (B, C, N): statistics over B and N."""
 
 
 def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
@@ -162,17 +171,28 @@ class NamedStack(nn.Sequential):
         return x
 
 
+# flax's lecun_normal draws a normal truncated to +-2 and divides it by the
+# standard deviation of that truncated normal, so the kernel's std is 1/sqrt(fan_in)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights for every layer of ``module``, all drawn from
-    ``generator``: convolutions and linear layers U(-1/sqrt(fan_in), ..) with
-    zero bias, Snake ``a`` U(0.2, 0.5) as in the JAX package, embeddings
-    N(0, 1/dim); norms and running statistics keep their identity values."""
+    ``generator``, from the distributions flax gives the JAX package's
+    layers: convolution and linear kernels ``lecun_normal`` (a normal
+    truncated to +-2, times 1/(sqrt(fan_in) * 0.8796), fan_in = input
+    channels times the kernel's taps) with zero bias; Snake ``a`` U(0.2, 0.5);
+    embeddings N(0, 1/dim) (``nn.Embed``'s default); norms and running
+    statistics keep their identity values. The draws differ from JAX's; the
+    distributions are the same."""
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight
-            bound = 1.0 / math.sqrt(w.shape[1] * math.prod(w.shape[2:]))
-            w.copy_(torch.rand(w.shape, generator=generator) * 2 * bound - bound)
+            # torch stores (out, in, *kernel), a transposed conv (in, out, *kernel)
+            fan_in = w.shape[0 if isinstance(m, nn.ConvTranspose2d) else 1] * math.prod(w.shape[2:])
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.mul_(1.0 / (math.sqrt(fan_in) * TRUNCATED_NORMAL_STD))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, Snake):

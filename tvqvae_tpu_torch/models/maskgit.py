@@ -1,9 +1,13 @@
-"""MaskGIT prior: iterative parallel decoding over a frozen stage 1.
+"""MaskGIT prior: training-time masking and iterative parallel decoding
+over a frozen stage 1.
 
-Port of the sampling half of ``tvqvae_tpu/models/maskgit.py``:
+Port of ``tvqvae_tpu/models/maskgit.py`` without the ESS sampler:
 
   - ``FrozenStage1`` bundles the eval-mode stage-1 model with its two
     codebooks; ``encode_tokens``/``decode_tokens`` run through it.
+  - ``random_mask_tokens`` masks a per-row random number of positions for
+    training, and ``masked_ce`` is the cross-entropy over the masked
+    positions only.
   - ``decode_band_scan`` is the JAX ``lax.scan`` as a Python loop over the T
     steps. Every sample starts fully masked, so the per-step mask lengths
     are static (``decode_schedule``), and "re-mask the k least confident" is
@@ -16,11 +20,14 @@ Port of the sampling half of ``tvqvae_tpu/models/maskgit.py``:
     ``torch.Generator``, or ``noise`` with the draws themselves (the parity
     tests hand in JAX's).
 
-Training-time masking and the ESS sampler come with later slices.
+The ESS sampler is not ported yet.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence, Tuple
+
+import copy
+import math
 
 import numpy as np
 import torch
@@ -41,6 +48,11 @@ def gamma_fn(mode: str = "cosine") -> Callable[[np.ndarray], np.ndarray]:
     if mode == "cubic":
         return lambda r: 1.0 - r ** 3
     raise NotImplementedError(mode)
+
+
+def gamma_cosine(r: torch.Tensor) -> torch.Tensor:
+    """``gamma_fn("cosine")`` over tensors: the training mask schedule."""
+    return torch.cos(r * math.pi / 2.0)
 
 
 def decode_schedule(num_tokens: int, T: int, choice_temp: float, mode: str):
@@ -84,6 +96,15 @@ class FrozenStage1:
                       for band in ("vq_l", "vq_h"))
         return FrozenStage1(model.to(device).eval(), vq_l.to(device), vq_h.to(device))
 
+    @staticmethod
+    def from_stage1_state(state) -> "FrozenStage1":
+        """From a trained ``train/stage1.Stage1TrainState``: an eval-mode
+        copy of its model with ``requires_grad`` off, and its two codebooks,
+        on the state's device (the stage-1 bundle JAX loads from a
+        checkpoint). The training state is left as it was."""
+        model = copy.deepcopy(state.model).eval().requires_grad_(False)
+        return FrozenStage1(model, state.vq_l, state.vq_h)
+
 
 def encode_tokens(
     frozen: FrozenStage1,
@@ -106,6 +127,40 @@ def decode_tokens(frozen: FrozenStage1, s: torch.Tensor, band: str) -> torch.Ten
     """Token indices (B, N) -> time series (B, C, L) through the frozen decoder."""
     state = frozen.vq_l if band == "lf" else frozen.vq_h
     return frozen.model.decode(lookup_codes(state, s), band)
+
+
+# --------------------------------------------------------------------------
+# training-time masking + loss
+
+
+def random_mask_tokens(
+    s: torch.Tensor,
+    mask_token: int,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row: a ratio ~ U[0, 1), ``n_keep = clip(floor(cos(ratio * pi / 2)
+    * n), 0, n - 1)`` (the cosine schedule, as the JAX step uses it), and the ``n_keep`` positions of highest U[0, 1) score kept;
+    the rest become ``mask_token``. -> (masked tokens, keep) with True =
+    kept. ``noise`` = (ratio (B,), scores (B, n)) replaces the draws."""
+    B, n = s.shape
+    if noise is None:
+        ratio = torch.rand(B, generator=generator, device=s.device)
+        scores = torch.rand((B, n), generator=generator, device=s.device)
+    else:
+        ratio, scores = (t.to(s.device) for t in noise)
+    n_keep = torch.clamp(torch.floor(gamma_cosine(ratio) * n), 0, n - 1)
+    keep = _rank(-scores, dim=-1) < n_keep.to(torch.int64)[:, None]
+    return torch.where(keep, s, torch.full_like(s, mask_token)), keep
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy (float32 log-softmax) averaged over the masked
+    positions only; 0 where no position is masked."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    w = (~keep).float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------
@@ -143,8 +198,9 @@ def build_transformers(
     cfg: Config, s1: Stage1Spec, n_classes: int,
     force_projections: Tuple[bool, bool] = (False, False),
 ) -> Tuple[BidirectionalTransformer, BidirectionalTransformer]:
-    """The LF and HF priors. ``force_projections`` (LF, HF) keeps square
-    project_in/out layers, as imported reference priors carry them."""
+    """The LF and HF priors with the config's dropout rates (used in train
+    mode only). ``force_projections`` (LF, HF) keeps square project_in/out
+    layers, as imported reference priors carry them."""
 
     def mk(kind, pm, n_tok, force):
         return BidirectionalTransformer(
@@ -160,6 +216,9 @@ def build_transformers(
             use_rmsnorm=pm.use_rmsnorm,
             n_classes=n_classes,
             force_projections=force,
+            p_unconditional=pm.p_unconditional,
+            model_dropout=pm.model_dropout,
+            emb_dropout=pm.emb_dropout,
         )
 
     return (

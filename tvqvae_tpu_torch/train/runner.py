@@ -1,17 +1,22 @@
-"""Stage-1 training orchestration.
+"""Stage-1 and stage-2 training orchestration.
 
-Port of the stage-1 part of ``tvqvae_tpu/train/runner.py``: ``_adamw``,
-``_loop``, ``codebook_to_dict``/``codebook_from_dict`` and ``train_stage1``.
-The loop is the JAX package's device-data path: the train split is uploaded
-once, each step gathers its batch on the device by index, and validation
-runs over the whole test split in fixed, wrap-padded batches with the
-padding masked out of the sums. Nothing reads a value back from the device
-between steps; the loop waits for the device only where it prints or
-validates.
+Port of the stage-1 and stage-2 parts of ``tvqvae_tpu/train/runner.py``:
+``_adamw``, ``_loop``, ``codebook_to_dict``/``codebook_from_dict``,
+``train_stage1`` and ``train_stage2``. The loops are the JAX package's
+device-data path: the train split (or, in stage 2, its token grids) is
+uploaded once, each step gathers its batch on the device by index, and
+stage-1 validation runs over the whole test split in fixed, wrap-padded
+batches with the padding masked out of the sums. Nothing reads a value back
+from the device between steps; the loop waits for the device only where it
+prints or validates.
+
+Stage 2 takes its frozen stage 1 in memory: ``FrozenStage1.from_stage1_state``
+of a ``train_stage1`` result (JAX's ``load_stage1_bundle`` reads it from a
+checkpoint), or ``FrozenStage1.from_state_dict`` of a JAX tree.
 
 Not ported yet (ROADMAP item 11): the checkpoint writer (``save_path``),
-mid-run snapshots and resume, and the ``scripts/train.py`` CLI.
-``train_stage1`` returns the final ``Stage1TrainState`` instead.
+mid-run snapshots and resume, and the ``scripts/train.py`` CLI. The
+runners return their final state instead.
 """
 
 import functools
@@ -23,6 +28,7 @@ import torch
 
 from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.data.dataset import DatasetSplits, make_batches
+from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.models.vq import CodebookState
 from tvqvae_tpu_torch.train.optim import adamw
@@ -31,6 +37,13 @@ from tvqvae_tpu_torch.train.stage1 import (
     create_stage1_state,
     make_stage1_eval_step,
     make_stage1_train_step,
+)
+from tvqvae_tpu_torch.train.stage2 import (
+    Stage2TrainState,
+    create_stage2_state,
+    init_stage2,
+    precompute_token_dataset,
+    stage2_train_step_tokens,
 )
 from tvqvae_tpu_torch.utils.device import resolve_device
 from tvqvae_tpu_torch.utils.profiling import StepTimer
@@ -86,6 +99,20 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
                 logger.log_metrics({f"val/{k}": v for k, v in val.items()}, step)
 
 
+def _unported(**flags) -> None:
+    if any(flags.values()):
+        raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in flags.items() if v)}")
+
+
+def _batch_order(N: int, batch_size: int, steps: int, seed: int, dev) -> torch.Tensor:
+    """(steps, batch_size) row indices on ``dev``, in
+    ``make_batches(shuffle=True, seed=seed, repeat=True)``'s order."""
+    if N < batch_size:
+        raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
+    batches = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed, repeat=True)
+    return torch.from_numpy(np.stack([next(batches)[0] for _ in range(steps)])).to(dev)
+
+
 def train_stage1(
     cfg: Config,
     data: DatasetSplits,
@@ -112,18 +139,13 @@ def train_stage1(
     ``seed + 1``. The step bundles (``bundle_steps`` > 1), reduced-precision,
     remat, tensor-parallel and RNG-implementation options of the JAX runner
     are not ported and raise ``NotImplementedError``."""
-    unported = {"bundle_steps": bundle_steps > 1, "compute_dtype": compute_dtype != "float32",
-                "remat": remat, "fast_bn": fast_bn, "bf16_mu": bf16_mu, "bf16_nu": bf16_nu, "bf16_head": bf16_head,
-                "bf16_istft": bf16_istft, "tp": tp > 1, "rng_impl": rng_impl is not None}
-    if any(unported.values()):
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(k for k, v in unported.items() if v)}")
+    _unported(bundle_steps=bundle_steps > 1, compute_dtype=compute_dtype != "float32",
+              remat=remat, fast_bn=fast_bn, bf16_mu=bf16_mu, bf16_nu=bf16_nu, bf16_head=bf16_head,
+              bf16_istft=bf16_istft, tp=tp > 1, rng_impl=rng_impl is not None)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage1"]
-    N = len(data.X_train)
-    if N < batch_size:
-        raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
+    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_init = time.time()
     spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels)
@@ -133,8 +155,6 @@ def train_stage1(
 
     t_up = time.time()
     X_dev = torch.from_numpy(data.X_train).to(dev)
-    batches = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed, repeat=True)
-    order = torch.from_numpy(np.stack([next(batches)[0] for _ in range(max_steps)])).to(dev)
     print(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
           f"{time.time() - t_up:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -148,6 +168,66 @@ def train_stage1(
     _loop("stage1", max_steps, train_once, eval_once, logger,
           cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval)
     print(f"[stage1] loop {time.time() - t_loop:.1f}s")
+    return state
+
+
+def train_stage2(
+    cfg: Config,
+    data: DatasetSplits,
+    frozen: FrozenStage1,
+    max_steps: Optional[int] = None,
+    seed: int = 0,
+    logger=None,
+    bundle_steps: int = 1,
+    bf16_mu: bool = False,
+    bf16_nu: bool = False,
+    tp: int = 1,
+    metrics=None,
+    val_n_samples: Optional[int] = None,
+    device="cuda",
+    log_interval: int = 100,
+) -> Stage2TrainState:
+    """Train both MaskGIT priors from seeded random weights over ``frozen``
+    (on ``device``) for ``max_steps`` (default: the config's) and return the
+    final state.
+
+    One sweep encodes the train split to token grids through the VQ
+    kernel, and the steps run on those. The JAX runner's on-the-fly path
+    (``precompute=False``) serves only its multi-host feed, so it is not
+    here; ``train/stage2.py::make_stage2_train_step`` is that step. Batches
+    of ``dataset.batch_sizes["stage2"]`` follow ``make_batches(shuffle=True,
+    seed=seed, repeat=True)`` (the JAX token path permutes on the device with
+    threefry instead, a deviation its own runner calls non-semantic); masks
+    and dropouts come from a generator seeded ``seed + 1``. The
+    validation-time sampling metrics (``metrics``, ``val_n_samples``), step
+    bundles, bf16 moments and tensor parallelism of the JAX runner are not
+    ported and raise ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1,
+              metrics=metrics is not None, val_n_samples=val_n_samples is not None)
+    dev = resolve_device(device)
+    if frozen.vq_l.embed.device.type != dev.type:
+        raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
+    batch_size = cfg.dataset.batch_sizes.get("stage2", 16)
+    max_steps = max_steps or cfg.trainer_params.max_steps["stage2"]
+    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+
+    t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
+                           torch.Generator().manual_seed(seed), dev)
+    state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    y_dev = torch.from_numpy(data.y_train).to(dev)
+    t0 = time.time()
+    tok_l, tok_h = precompute_token_dataset(frozen, torch.from_numpy(data.X_train).to(dev),
+                                            batch_size=max(batch_size, 64))
+    print(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
+    tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
+
+    def train_once(step):
+        idx = order[step - 1]
+        return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
+
+    _loop("stage2", max_steps, train_once, None, logger,
+          cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval)
     return state
 
 

@@ -1,22 +1,150 @@
-"""Stage 2 (MaskGIT prior): the sampling function.
+"""Stage 2 (MaskGIT prior): training state and steps, the token dataset, and
+the sampling function.
 
-Port of ``tvqvae_tpu/train/stage2.py::make_sampling_fn``; the training step
-comes with the training slice. JAX passes every parameter tree as a jit
-argument; here the frozen stage 1 and the priors are eval-mode modules that
-the returned function closes over.
+Port of ``tvqvae_tpu/train/stage2.py``. One step masks both token grids,
+runs the LF prior on the masked LF grid and the HF prior on the masked LF
+and HF grids, adds the two masked cross-entropies, and takes one AdamW step
+over both priors. The frozen stage-1 encode is deterministic (eval-mode
+BatchNorm, argmax through the VQ kernel), so the default path encodes the
+train split once (``precompute_token_dataset``) and the step runs on token
+grids (``stage2_train_step_tokens``); ``make_stage2_train_step``
+encodes each batch inside the step instead. The encode draws nothing from
+the generator, so from the same generator state the two steps make the
+same update.
+
+JAX's step is a pure function of the state; here the state holds the two
+priors and the optimizer, which the step updates in place (the HF prior's
+BatchNorm buffers are JAX's ``h_stats``). Metrics stay on the device as
+0-dim tensors. JAX passes every parameter tree to the sampler as a jit
+argument; here ``make_sampling_fn`` closes over the modules.
 """
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import (
     FrozenStage1,
     MaskGITSpec,
     decode_tokens,
+    encode_tokens,
     iterative_decoding,
+    masked_ce,
+    random_mask_tokens,
 )
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
+from tvqvae_tpu_torch.utils.device import resolve_device
+
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclass
+class Stage2TrainState:
+    t_l: BidirectionalTransformer
+    t_h: BidirectionalTransformer
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def init_stage2(t_l: BidirectionalTransformer, t_h: BidirectionalTransformer,
+                generator: torch.Generator, device="cuda"):
+    """Seeded random weights for both priors (``layers.init_weights_``: the
+    LF prior's draws, then the HF prior's; a CPU generator gives the same
+    weights on every device). -> (t_l, t_h) on ``device``."""
+    dev = resolve_device(device)
+    return init_weights_(t_l, generator).to(dev), init_weights_(t_h, generator).to(dev)
+
+
+def create_stage2_state(t_l: BidirectionalTransformer, t_h: BidirectionalTransformer,
+                        tx: Callable) -> Stage2TrainState:
+    """One optimizer over both priors' parameters, as optax runs over the
+    ``{"l", "h"}`` tree. ``tx(parameters) -> (optimizer, scheduler)``, e.g.
+    ``train/runner.py::_adamw``."""
+    optimizer, scheduler = tx([*t_l.parameters(), *t_h.parameters()])
+    return Stage2TrainState(t_l, t_h, optimizer, scheduler)
+
+
+def stage2_train_step_tokens(state: Stage2TrainState, s_l: torch.Tensor, s_h: torch.Tensor,
+                             y: Optional[torch.Tensor],
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[dict] = None) -> Tuple[Stage2TrainState, Metrics]:
+    """One step on precomputed token grids (B, 27) and (B, 108); ``y``
+    (B, 1) class indices or None (JAX's ``make_stage2_train_step_tokens``).
+    Draws in order: the LF mask, the HF mask, the LF prior's dropouts, the
+    HF prior's. ``noise`` = {"l": (ratio, scores), "h": (...)} replaces the
+    masking draws (``random_mask_tokens``)."""
+    noise = noise or {}
+    s_l_M, keep_l = random_mask_tokens(s_l, state.t_l.mask_token_l, generator=generator,
+                                       noise=noise.get("l"))
+    s_h_M, keep_h = random_mask_tokens(s_h, state.t_h.mask_token_h, generator=generator,
+                                       noise=noise.get("h"))
+    logits_l = state.t_l(s_l_M, None, y, train=True, generator=generator)
+    logits_h = state.t_h(s_l_M, s_h_M, y, train=True, generator=generator)  # the masked LF grid
+    ce_l = masked_ce(logits_l, s_l, keep_l)
+    ce_h = masked_ce(logits_h, s_h, keep_h)
+    loss = ce_l + ce_h
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    loss = loss.detach()
+    return state, {"loss": loss, "mask_pred_loss": loss,
+                   "mask_pred_loss_l": ce_l.detach(), "mask_pred_loss_h": ce_h.detach()}
+
+
+def make_stage2_train_step(frozen: FrozenStage1) -> Callable:
+    """step(state, x, y, generator=None, noise=None) -> (state, metrics):
+    encodes both bands of ``x`` (B, C, L) through the frozen stage 1 (two
+    VQ kernel launches), then ``stage2_train_step_tokens``."""
+
+    def step(state, x, y, generator=None, noise=None):
+        with torch.no_grad():
+            s_l, s_h = encode_tokens(frozen, x, "lf"), encode_tokens(frozen, x, "hf")
+        return stage2_train_step_tokens(state, s_l, s_h, y, generator, noise)
+
+    return step
+
+
+def make_token_encode_fn(frozen: FrozenStage1) -> Callable:
+    """x (B, C, L) -> (s_l, s_h) int32 token grids through the frozen
+    stage 1 (deterministic: eval-mode BatchNorm, argmax VQ)."""
+
+    @torch.inference_mode()
+    def enc(x: torch.Tensor):
+        return encode_tokens(frozen, x, "lf"), encode_tokens(frozen, x, "hf")
+
+    return enc
+
+
+def precompute_token_dataset(frozen: FrozenStage1, X, batch_size: int = 64
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """One eval-mode sweep over ``X`` (N, C, L) -> (tokens_l (N, 27),
+    tokens_h (N, 108)) int32 numpy arrays. Fixed batches of
+    ``min(batch_size, N)`` rows, the last wrapped around to the start and
+    its wrapped rows dropped. ``X`` is a numpy array, or a tensor (already
+    on the frozen model's device: each batch is then a device gather)."""
+    enc = make_token_encode_fn(frozen)
+    dev = frozen.vq_l.embed.device
+    N = X.shape[0]
+    bs = min(batch_size, N)
+    out_l, out_h = [], []
+    for start in range(0, N, bs):
+        idx = np.arange(start, start + bs) % N
+        if isinstance(X, torch.Tensor):
+            xb = X[torch.from_numpy(idx).to(X.device)]
+        else:
+            xb = torch.from_numpy(np.ascontiguousarray(X[idx], dtype=np.float32))
+        s_l, s_h = enc(xb.to(dev))
+        real = min(bs, N - start)
+        out_l.append(s_l[:real])
+        out_h.append(s_h[:real])
+    return (torch.cat(out_l).to(torch.int32).cpu().numpy(),
+            torch.cat(out_h).to(torch.int32).cpu().numpy())
 
 
 def make_sampling_fn(
