@@ -28,7 +28,17 @@ It needs no JAX and no network. Phases, each fatal on failure:
      precomputed-token path: the sweep's VQ launches (2 per 64-series
      batch), a finite loss that falls, steady ms per step past a 20-step
      warmup (CUDA events), peak memory.
-  9. checks after the counted runs: the reconstruct tokens against the
+  9. stage 3: the counters set to 0 again, ``train_stage3`` over the same
+     frozen stage 1 at the published width (``Config()``: enhancer dim 8,
+     dim_mults (1, 2, 4, 8), 4 groups, dropout 0.5, B=16) for 120 steps on
+     the precomputed-x' path: the x' sweep's VQ launches (2 per 32-series
+     batch) and none in the steps, a finite loss that falls, steady ms per
+     step past a 20-step warmup (CUDA events), the memory it adds, the
+     enhancer's parameter count.
+ 10. fcn: ``train_fcn`` (128/256/128 channels, kernels 8/5/3) for 60 steps
+     at batch min(256, 288): a finite loss that falls, the 128-wide
+     features, train accuracy, steady ms per step, peak memory.
+ 11. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
      three training steps of each stage; one more published-width training
@@ -36,10 +46,16 @@ It needs no JAX and no network. Phases, each fatal on failure:
      plain twin (indices and EMA codebook state); two series at the
      published width through the card and the CPU; the stage-2 sweep's
      tokens against the plain VQ version's; three on-the-fly stage-2 steps
-     against the token path; a 32-batch sampled from the trained priors.
- 10. profile: device time by kernel and the device's idle share over one
+     against the token path; a 32-batch sampled from the trained priors;
+     the x' sweep through the kernel and its plain twin; three on-the-fly
+     stage-3 steps against the precomputed path and three at tau 0.5; a
+     small stage 3 and a small FCN on the card against the CPU; the
+     published-width enhancer on the card against the CPU and a float64
+     witness; the sampler with a seeded enhancer, and the trained enhancer
+     over a batch sampled from the trained priors.
+ 12. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage
-     (torch.profiler).
+     and one FCN step (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``. Any failure
@@ -70,6 +86,8 @@ MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two
 B, C, L, N_CLASSES = 32, 4, 4633, 5
 TRAIN_STEPS, TRAIN_SERIES = 40, 320
 STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 200, 20, 64
+STAGE3_STEPS, STAGE3_WARMUP, XPRIME_BATCH = 120, 20, 32
+FCN_STEPS, FCN_WARMUP = 60, 10
 VQ_KERNELS = ("assign_kernel", "merge_stats_kernel", "final_kernel")  # csrc/vq_nearest.cu
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
@@ -81,6 +99,7 @@ SMALL_CFG = {
     "MaskGIT": {"T": {"lf": 3, "hf": 1},
                 "prior_model_l": {"hidden_dim": 16, "n_layers": 2, "heads": 2},
                 "prior_model_h": {"hidden_dim": 8, "n_layers": 1, "heads": 1}},
+    "fidelity_enhancer": {"dim": 8, "dim_mults": [1, 2], "resnet_block_groups": 4},
 }
 
 
@@ -278,11 +297,12 @@ class StepRecorder:
 
     def __init__(self, torch):
         self.torch = torch
-        self.losses, self.events, self.val = [], [], []
+        self.losses, self.events, self.val, self.acc = [], [], [], []
 
     def log_metrics(self, metrics, step):
         if "train/loss" in metrics:
             self.losses.append(metrics["train/loss"])
+            self.acc.append(metrics.get("train/acc"))
             self.events.append(self.torch.cuda.Event(enable_timing=True))
             self.events[-1].record()
         else:
@@ -583,6 +603,363 @@ def small_stage2_check(torch, devices=("cpu", "cuda"), steps=3):
           f"{worst:.3g}", flush=True)
 
 
+def stage3_phase(torch, vq_kernel, frozen, data, device="cuda"):
+    """``train_stage3`` at the published width over the frozen trained stage
+    1, counted; -> (state, steady ms per step, VQ kernel launches)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.train.runner import train_stage3
+
+    cfg = Config()
+    rec = StepRecorder(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30  # the earlier phases' models and states
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    state = train_stage3(cfg, data, frozen, max_steps=STAGE3_STEPS, device=device, logger=rec,
+                         log_interval=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vq_kernel.launch_count
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    N = len(data.X_train)
+    expected = 2 * -(-N // XPRIME_BATCH)  # the sweep only: the steps run on x'
+    check(launches == expected, f"VQ kernel launches {launches} in stage 3, expected {expected}")
+    check(len(rec.losses) == STAGE3_STEPS and not rec.val, "train_stage3 logged wrongly")
+    losses = [float(v) for v in rec.losses]
+    check(bool(np.isfinite(losses).all()), f"non-finite stage-3 loss: {losses}")
+    w = STAGE3_WARMUP
+    first, last = float(np.mean(losses[w:2 * w])), float(np.mean(losses[-w:]))
+    check(last < first, f"stage-3 loss did not fall: steps {w + 1}-{2 * w} {first}, last {w} {last}")
+    ms = rec.events[w].elapsed_time(rec.events[-1]) / (STAGE3_STEPS - 1 - w)
+    n_params = sum(p.numel() for p in state.fe.parameters())
+    print(f"[stage3] published width, enhancer {n_params} parameters, batch "
+          f"{cfg.dataset.batch_sizes['stage3']}, dropout {cfg.fidelity_enhancer.dropout}, {N} train "
+          f"series: {STAGE3_STEPS} steps in {wall:.1f} s (with init and the x' sweep); steady "
+          f"{ms:.3f} ms/step = {1e3 / ms:.1f} steps/s (CUDA events, steps {w + 2}-{STAGE3_STEPS}); "
+          f"peak memory {peak_gb:.2f} GiB, of which {peak_gb - base_gb:.3f} GiB above what was "
+          f"allocated before", flush=True)
+    print(f"[stage3] loss step 1 {losses[0]:.4f}, step {STAGE3_STEPS} {losses[-1]:.4f}; mean of "
+          f"steps {w + 1}-{2 * w} {first:.4f}, of the last {w} {last:.4f}; VQ kernel launches "
+          f"{launches} (the sweep: 2 per {XPRIME_BATCH}-series batch)", flush=True)
+    return state, ms, launches
+
+
+def fcn_phase(torch, data, device="cuda"):
+    """``train_fcn`` on the train split at batch min(256, N); -> (the trained
+    FCN, steady ms per step)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.train.runner import train_fcn
+
+    rec = StepRecorder(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    fcn = train_fcn(Config(), data, logger=rec, max_epochs=FCN_STEPS, device=device, log_interval=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(rec.losses) == FCN_STEPS, "train_fcn logged wrongly")
+    losses = [float(v) for v in rec.losses]
+    check(bool(np.isfinite(losses).all()), f"non-finite FCN loss: {losses}")
+    w = FCN_WARMUP
+    first, last = float(np.mean(losses[:w])), float(np.mean(losses[-w:]))
+    check(last < first, f"FCN loss did not fall: first {w} {first}, last {w} {last}")
+    ms = rec.events[w].elapsed_time(rec.events[-1]) / (FCN_STEPS - 1 - w)
+    X = torch.from_numpy(data.X_train).to(device)
+    y = torch.from_numpy(data.y_train[:, 0]).to(device)
+    with torch.inference_mode():
+        z = fcn(X[:B], features=True)
+        acc = float((fcn(X).argmax(-1) == y).float().mean())
+    check(tuple(z.shape) == (B, 128) and bool(torch.isfinite(z).all()), "bad FCN features")
+    bs = min(256, len(X))
+    n_params = sum(p.numel() for p in fcn.parameters())
+    print(f"[fcn] {n_params / 1e6:.3f} M parameters, batch {bs}, {len(X)} train series, "
+          f"{data.n_classes} classes: {FCN_STEPS} steps in {wall:.1f} s (with init and upload); "
+          f"steady {ms:.3f} ms/step = {1e3 / ms:.1f} steps/s (CUDA events, steps {w + 2}-"
+          f"{FCN_STEPS}); peak memory {peak_gb:.2f} GiB, of which {peak_gb - base_gb:.3f} GiB "
+          f"above what was allocated before", flush=True)
+    print(f"[fcn] loss step 1 {losses[0]:.4f}, step {FCN_STEPS} {losses[-1]:.4f}; mean of the "
+          f"first {w} {first:.4f}, of the last {w} {last:.4f}; last batch accuracy "
+          f"{float(rec.acc[-1]):.3f}; train accuracy (eval mode) {acc:.3f}; features {tuple(z.shape)} "
+          f"finite", flush=True)
+    return fcn, ms
+
+
+def stage3_checks(torch, vq_kernel, frozen, state, stage2, data, device="cuda"):
+    """After the counted run: the x' sweep of the train split through the
+    kernel and through its plain twin (tokens equal, x' within 1e-4 of its
+    scale; the sweep's time by host clock with a synchronise); three
+    on-the-fly tau = 0 steps from a copy of one initial enhancer against
+    three precomputed-x' steps on the same batches and generator seed (2
+    kernel launches per on-the-fly step; losses within 1e-6 relative at
+    step 1, 1e-5 at steps 2-3: the on-the-fly x' is decoded in batches of
+    16, the sweep's in batches of 32, and cuDNN may pick other algorithms);
+    three on-the-fly steps at tau 0.5 (finite); the trained enhancer over a
+    32-batch sampled from the trained priors. -> the sweep's x'."""
+    import copy
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import make_batches
+    from tvqvae_tpu_torch.models import vq as vq_module
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models.maskgit import MaskGITSpec
+    from tvqvae_tpu_torch.train.runner import _adamw
+    from tvqvae_tpu_torch.train.stage2 import make_sampling_fn, precompute_token_dataset
+    from tvqvae_tpu_torch.train.stage3 import (
+        create_stage3_state,
+        init_stage3,
+        make_stage3_train_step,
+        make_stage3_train_step_pre,
+        make_xprime_fn,
+        precompute_xprime_dataset,
+    )
+
+    cfg = Config()
+    X = torch.from_numpy(data.X_train).to(device)
+    precompute_xprime_dataset(frozen, X, XPRIME_BATCH, keep_on_device=True)  # warm
+    sweeps = {}
+    for name, assign in (("kernel", vq_kernel.nearest_codes_stats),
+                         ("plain", vq_kernel.nearest_codes_stats_plain)):
+        vq_module.nearest_codes_stats = assign
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xp = precompute_xprime_dataset(frozen, X, XPRIME_BATCH, keep_on_device=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            sweeps[name] = (xp, precompute_token_dataset(frozen, X, XPRIME_BATCH), ms)
+        finally:
+            vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats
+    (k_xp, (k_l, k_h), k_ms), (p_xp, (p_l, p_h), p_ms) = sweeps["kernel"], sweeps["plain"]
+    check(np.array_equal(k_l, p_l) and np.array_equal(k_h, p_h),
+          "stage-3 sweep tokens differ from the plain VQ version's")
+    rel = float((k_xp - p_xp).abs().max() / p_xp.abs().max())
+    check(rel <= 1e-4, f"stage-3 x' through the kernel off the plain twin's by {rel} of its scale")
+    print(f"[stage3] x' sweep of {len(k_xp)} series: {k_ms:.2f} ms through the kernel, "
+          f"{p_ms:.2f} ms through the plain twin; tokens equal, x' within {rel:.3g} of its scale",
+          flush=True)
+
+    fe0 = init_stage3(FidelityEnhancer.from_config(cfg, L, C), torch.Generator().manual_seed(0),
+                      device)
+    fe_hot = copy.deepcopy(fe0)
+    fly_state = create_stage3_state(fe0, _adamw(cfg, STAGE3_STEPS))
+    pre_state = create_stage3_state(copy.deepcopy(fe0), _adamw(cfg, STAGE3_STEPS))
+    fly, pre, xprime_of = (make_stage3_train_step(frozen), make_stage3_train_step_pre(),
+                           make_xprime_fn(frozen))
+    g_fly, g_pre = (torch.Generator(device=device).manual_seed(1) for _ in range(2))
+    batches = make_batches(np.arange(len(X)), None, cfg.dataset.batch_sizes["stage3"],
+                           shuffle=True, seed=0)
+    pairs, idxs = [], [torch.from_numpy(next(batches)[0]).to(device) for _ in range(3)]
+    x_err = float((xprime_of(X[idxs[0]]) - k_xp[idxs[0]]).abs().max() / k_xp.abs().max())
+    before = vq_kernel.launch_count
+    for t, idx in enumerate(idxs):
+        a = fly(fly_state, X[idx], g_fly)[1]["loss"].item()
+        b = pre(pre_state, X[idx], k_xp[idx], g_pre)[1]["loss"].item()
+        check(abs(a - b) <= (1e-6 if t == 0 else 1e-5) * abs(b),
+              f"on-the-fly stage-3 step {t + 1}: loss {a} vs the precomputed path's {b}")
+        pairs.append((a, b))
+    fly_launches = vq_kernel.launch_count - before
+    check(fly_launches == 2 * len(idxs), f"on-the-fly stage-3 steps launched {fly_launches}")
+    print(f"[stage3] on-the-fly (tau 0) vs precomputed x', 3 steps from the same initial enhancer: "
+          f"losses {pairs} (step 1 bit-equal: {pairs[0][0] == pairs[0][1]}; the batch's x' "
+          f"within {x_err:.3g} of the sweep's scale); {fly_launches} VQ launches", flush=True)
+
+    hot_state = create_stage3_state(fe_hot, _adamw(cfg, STAGE3_STEPS))
+    hot, g_hot = make_stage3_train_step(frozen, tau=0.5), torch.Generator(device=device).manual_seed(2)
+    before = vq_kernel.launch_count
+    hot_losses = [hot(hot_state, X[idx], g_hot)[1]["loss"].item() for idx in idxs]
+    check(bool(np.isfinite(hot_losses).all()), f"tau 0.5 stage-3 losses {hot_losses}")
+    print(f"[stage3] on-the-fly tau 0.5, 3 steps: losses {hot_losses}, VQ launches "
+          f"{vq_kernel.launch_count - before} (the SVQ categorical draws in plain torch)", flush=True)
+
+    spec = MaskGITSpec.from_config(cfg, frozen.model.spec)
+    sample = make_sampling_fn(frozen, stage2.t_l, stage2.t_h, spec)
+    _, _, x = sample(B, None, torch.Generator(device=device).manual_seed(22))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        xe = state.fe(x)
+    torch.cuda.synchronize()
+    dt = 1e3 * (time.perf_counter() - t0)
+    check(tuple(xe.shape) == (B, C, L) and bool(torch.isfinite(xe).all()), "bad enhanced samples")
+    print(f"[stage3] trained enhancer over {B} series sampled from the trained priors: {dt:.1f} ms, "
+          f"finite; mean |FE(x) - x| {float((xe - x).abs().mean()):.4f}", flush=True)
+    return k_xp
+
+
+def witness_check(label, ours, ref, exact, tight, loose=None):
+    """Each leaf of the state dicts ``ours`` (the run under test, e.g. the
+    card) and ``ref`` (the float32 reference run, e.g. the CPU) within
+    ``tight`` + ``tight`` relative of each other, except where the
+    reference is itself farther than that from ``exact`` (the same steps in
+    float64): there ``ours`` must be no farther from ``exact`` than twice
+    the reference is. ``loose`` {leaf: bound} caps the leaves whose gradient
+    a train-mode norm cancels. -> (worst error, witnessed leaves)."""
+    worst, witnessed = 0.0, []
+    for k, v in ref.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        v = v.double()
+        o = ours[k].cpu().double()
+        e_or, e_oe, e_re = (float((a - b).abs().max()) for a, b in ((o, v), (o, exact[k]),
+                                                                    (v, exact[k])))
+        if e_or > tight + tight * float(v.abs().max()):
+            check(e_re > tight and e_oe <= 2 * e_re,
+                  f"{label}: {k} off by {e_or}; from float64: ours {e_oe}, reference {e_re}")
+            witnessed.append(k)
+        if loose and k in loose:
+            check(e_or <= loose[k], f"{label}: {k} off by {e_or}, beyond {loose[k]}")
+        worst = max(worst, e_or)
+    return worst, witnessed
+
+
+def small_stage3_check(torch, devices=("cpu", "cuda"), steps=3):
+    """The same seeded small stage 1 and small enhancer (dim 8, dim_mults
+    (1, 2), dropout 0) on the CPU (plain VQ) and on the card (kernel): the
+    x' sweep within 1e-5 of its scale, three on-the-fly tau = 0 steps'
+    losses within 1e-5 relative, parameters within 1e-5 (the float64
+    witness rule of ``witness_check``)."""
+    import copy
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.train.runner import _adamw
+    from tvqvae_tpu_torch.train.stage3 import (
+        create_stage3_state,
+        init_stage3,
+        make_stage3_train_step,
+        make_stage3_train_step_pre,
+        precompute_xprime_dataset,
+    )
+
+    cfg = Config.from_dict({**SMALL_CFG, "fidelity_enhancer": {**SMALL_CFG["fidelity_enhancer"],
+                                                               "dropout": 0.0}})
+    Ls, n = 127, 8
+    spec = Stage1Spec.from_config(cfg, Ls, C)
+    xs = np.random.default_rng(10).normal(size=(steps, n, C, Ls)).astype(np.float32)
+    runs = []
+    for dev in devices:
+        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
+        frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
+        fe = init_stage3(FidelityEnhancer.from_config(cfg, Ls, C), torch.Generator().manual_seed(4), dev)
+        fe0 = copy.deepcopy(fe)
+        state = create_stage3_state(fe, _adamw(cfg, TRAIN_STEPS))
+        xprime = precompute_xprime_dataset(frozen, xs.reshape(-1, C, Ls), batch_size=n)
+        step = make_stage3_train_step(frozen)
+        losses = [step(state, torch.from_numpy(x).to(dev))[1]["loss"].item() for x in xs]
+        runs.append((state, xprime, losses, fe0))
+    (ref, ref_xp, ref_loss, fe0), (dut, dut_xp, dut_loss, _) = runs
+    xp_err = float(np.abs(dut_xp - ref_xp).max() / np.abs(ref_xp).max())
+    check(xp_err <= 1e-5, f"small stage 3: x' off by {xp_err} of its scale")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
+    check(loss_err <= 1e-5, f"small stage 3: losses off by {loss_err} relative")
+    # the float64 witness: the CPU's precomputed steps from the same x', in float64
+    exact_fe = fe0.double()
+    exact = create_stage3_state(exact_fe, _adamw(cfg, TRAIN_STEPS))
+    pre = make_stage3_train_step_pre()
+    for x, xp in zip(xs, ref_xp.reshape(steps, n, C, Ls)):
+        pre(exact, torch.from_numpy(x).double(), torch.from_numpy(xp).double())
+    worst, witnessed = witness_check("small stage 3", dut.fe.state_dict(), ref.fe.state_dict(),
+                                     exact.fe.state_dict(), 1e-5)
+    print(f"[reference] small stage 3, {steps} steps, card vs CPU: x' {xp_err:.3g} of scale, "
+          f"losses {dut_loss} vs {ref_loss}, rel err {loss_err:.3g}, parameters {worst:.3g} "
+          f"(held to the float64 witness: {witnessed or 'none'})", flush=True)
+
+
+def published_fe_check(torch, series):
+    """The published-width enhancer (seeded, random GroupNorm scales and
+    biases) on two series on the card, on the CPU in float32 and on the CPU
+    in float64: the card within 2e-5 of the output's scale of both, tight
+    enough that TF32 (inputs rounded to 2^-11) or another lossy conv
+    algorithm fails it."""
+    import copy
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.train.stage3 import init_stage3
+
+    gen = torch.Generator().manual_seed(5)
+    fe = init_stage3(FidelityEnhancer.from_config(Config(), L, C), gen, "cpu")
+    with torch.no_grad():
+        for name, p in fe.named_parameters():
+            if "GroupNorm" in name:
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen) if name.endswith("weight")
+                        else 0.1 * torch.randn(p.shape, generator=gen))
+    x = torch.from_numpy(series[:2])
+    with torch.inference_mode():
+        y_cpu = fe(x)
+        y_64 = copy.deepcopy(fe).double()(x.double())
+        y_dev = copy.deepcopy(fe).cuda()(x.cuda()).cpu()
+    scale = float(y_64.abs().max())
+    dev_cpu = float((y_dev - y_cpu).abs().max()) / scale
+    dev_64, cpu_64 = (float((y.double() - y_64).abs().max()) / scale for y in (y_dev, y_cpu))
+    print(f"[reference] published-width enhancer, 2 series: card vs CPU {dev_cpu:.3g} of scale; "
+          f"vs float64 on the CPU: card {dev_64:.3g}, CPU float32 {cpu_64:.3g}", flush=True)
+    check(dev_cpu <= 2e-5 and dev_64 <= 2e-5,
+          f"published-width enhancer: card vs CPU {dev_cpu}, card vs float64 {dev_64}")
+
+
+def fe_sampler_check(torch, Config, TrainedModelSampler):
+    """The sampler at the published width with a seeded enhancer: one
+    32-batch, finite; ms per batch with the enhancer and without it."""
+    s = TrainedModelSampler.from_init(Config(), L, C, N_CLASSES, seed=0, device="cuda",
+                                      batch_size=B, use_fidelity_enhancer=True)
+    s.sample(B, seed=100)  # warm-up
+    times = {}
+    for use_fe in (True, False, True, False):
+        s.use_fe = use_fe
+        t0 = time.perf_counter()
+        x_l, x_h, x = s.sample(B, seed=1)
+        times.setdefault(use_fe, []).append(1e3 * (time.perf_counter() - t0))
+        check(x.shape == (B, C, L) and bool(np.isfinite(x).all()), "bad enhanced sampler output")
+    s.use_fe = True
+    print(f"[sampler] seeded enhancer at the published width: finite; ms per {B}-batch with the "
+          f"enhancer {times[True]}, without {times[False]}", flush=True)
+
+
+def small_fcn_check(torch, devices=("cpu", "cuda"), steps=3):
+    """Three FCN steps from the same seeded weights on the CPU and on the
+    card (B=8, L=257, the same batches): losses within 1e-5 relative,
+    parameters and BatchNorm statistics within 1e-5, with the float64
+    witness rule of ``witness_check``; the conv biases (a train-mode
+    BatchNorm cancels their gradient) and the running means they feed are
+    also capped at 1e-5 + 2 * sum(lr_t)."""
+    import copy
+
+    from tvqvae_tpu_torch.models.fcn import FCN
+    from tvqvae_tpu_torch.models.layers import init_weights_
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.train.runner import fcn_train_step
+    from tvqvae_tpu_torch.utils.schedule import cosine_decay_schedule
+
+    n, Ls = 8, 257
+    rng = np.random.default_rng(11)
+    xs = rng.normal(size=(steps, n, C, Ls)).astype(np.float32)
+    ys = rng.integers(0, 3, size=(steps, n, 1))
+    fcn0 = init_weights_(FCN(C, 3), torch.Generator().manual_seed(6))
+    schedule = cosine_decay_schedule(1e-3, FCN_STEPS)
+    runs = []
+    for dev, dtype in (*((d, torch.float32) for d in devices), ("cpu", torch.float64)):
+        m = copy.deepcopy(fcn0).to(dev, dtype)
+        opt, sched = adamw(m.parameters(), schedule, weight_decay=1e-5)
+        losses = [fcn_train_step(m, opt, sched, torch.from_numpy(x).to(dev, dtype),
+                                 torch.from_numpy(y).to(dev))[0].item() for x, y in zip(xs, ys)]
+        runs.append((m.state_dict(), losses))
+    (ref, ref_loss), (dut, dut_loss), (exact, _) = runs
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
+    check(loss_err <= 1e-5, f"small FCN: losses off by {loss_err} relative")
+    noise = 1e-5 + 2 * sum(schedule(t) for t in range(steps))
+    loose = {f"{m}_{i}.{leaf}": noise for i in range(3)
+             for m, leaf in (("Conv", "bias"), ("BatchNorm", "running_mean"))}
+    worst, witnessed = witness_check("small FCN", dut, ref, exact, 1e-5, loose)
+    print(f"[reference] small FCN, {steps} steps, card vs CPU: losses {dut_loss} vs {ref_loss}, "
+          f"rel err {loss_err:.3g}, parameters and BN statistics {worst:.3g} (held to the float64 "
+          f"witness: {witnessed or 'none'})", flush=True)
+
+
 def train_profile(torch, state, data, step_ms):
     """One more training step of the trained state, under the profiler."""
     from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
@@ -602,6 +979,32 @@ def stage2_profile(torch, state, tok_l, tok_h, y, step_ms, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(12)
     step(state, tok_l[idx], tok_h[idx], y[idx], gen)
     print_profile("stage-2 step of 16", lambda: step(state, tok_l[idx], tok_h[idx], y[idx], gen),
+                  step_ms)
+
+
+def stage3_profile(torch, state, data, xprime, step_ms, device="cuda"):
+    """One more precomputed-x' step of the trained enhancer, under the profiler."""
+    from tvqvae_tpu_torch.train.stage3 import make_stage3_train_step_pre
+
+    step = make_stage3_train_step_pre()
+    idx = torch.arange(16, device=device)
+    x = torch.from_numpy(data.X_train).to(device)[idx]
+    gen = torch.Generator(device=device).manual_seed(13)
+    step(state, x, xprime[idx], gen)
+    print_profile("stage-3 step of 16", lambda: step(state, x, xprime[idx], gen), step_ms)
+
+
+def fcn_profile(torch, fcn, data, step_ms, device="cuda"):
+    """One more FCN step of the trained net, under the profiler."""
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.train.runner import fcn_train_step
+
+    optimizer, scheduler = adamw(fcn.parameters(), 1e-4, weight_decay=1e-5)
+    bs = min(256, len(data.X_train))
+    x = torch.from_numpy(data.X_train[:bs]).to(device)
+    y = torch.from_numpy(data.y_train[:bs]).to(device)
+    fcn_train_step(fcn, optimizer, scheduler, x, y)
+    print_profile(f"fcn step of {bs}", lambda: fcn_train_step(fcn, optimizer, scheduler, x, y),
                   step_ms)
 
 
@@ -778,6 +1181,7 @@ def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda"
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -843,6 +1247,8 @@ def main():
     # ---- training, counted on its own ---------------------------------
     trained, data, step_ms, train_launches = train_phase(torch, vq_kernel)
     frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, trained, data)
+    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, frozen, data)
+    fcn, fcn_ms = fcn_phase(torch, data)
 
     # ---- checks after the counted run ---------------------------------
     rel = 0.0
@@ -870,9 +1276,16 @@ def main():
     published_width_check(torch, Config, TrainedModelSampler, sampler, series)
     tok_l, tok_h, y = stage2_checks(torch, vq_kernel, frozen, stage2, data)
     small_stage2_check(torch)
+    xprime = stage3_checks(torch, vq_kernel, frozen, stage3, stage2, data)
+    small_stage3_check(torch)
+    published_fe_check(torch, series)
+    fe_sampler_check(torch, Config, TrainedModelSampler)
+    small_fcn_check(torch)
     profile_phase(torch, sampler, series, wall_ms)
     train_profile(torch, trained, data, step_ms)
     stage2_profile(torch, stage2, tok_l, tok_h, y, stage2_ms)
+    stage3_profile(torch, stage3, data, xprime, stage3_ms)
+    fcn_profile(torch, fcn, data, fcn_ms)
 
     main_numbers = kernels[MAIN_SHAPE]
     entry = {
@@ -880,9 +1293,9 @@ def main():
         "route": "cuda",
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
-        "launches": serve_launches + train_launches + stage2_launches,
+        "launches": serve_launches + train_launches + stage2_launches + stage3_launches,
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
-                             "stage2": stage2_launches},
+                             "stage2": stage2_launches, "stage3": stage3_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],
@@ -892,6 +1305,7 @@ def main():
         "device_ms": main_numbers["device_ms"],
         "shape_MKD": list(MAIN_SHAPE),
     }
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

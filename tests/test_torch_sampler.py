@@ -1,11 +1,15 @@
 """Port parity for the slice as a whole: the sampler and the service.
 
 One small model (L=127, C=4, hid_dim 16, codebooks 8/8; priors 16x2Lx2H and
-8x1Lx1H; T = 3/1; 3 classes) is initialised by the JAX package and handed to
-both packages as the same in-memory trees. The JAX side runs
-``make_sampling_fn`` and ``encode_tokens``/``decode_tokens``; the port runs
-``TrainedModelSampler`` on the CPU with JAX's Gumbel draws injected.
-Tolerances: tokens and indices exactly, series to 2e-4 (float32 conv stacks).
+8x1Lx1H; T = 3/1; 3 classes; fidelity enhancer dim 8, dim_mults (1, 2), 4
+groups) is handed to both packages as the same in-memory trees: stages 1
+and 2 from the JAX package's init, the enhancer from the port's seeded init
+(random GroupNorm scales and biases) written out as a flax tree. The JAX side
+runs ``make_sampling_fn``, the enhancer's ``apply`` (what its sampler does
+with ``use_fidelity_enhancer``) and ``encode_tokens``/``decode_tokens``; the
+port runs ``TrainedModelSampler`` on the CPU with JAX's Gumbel draws
+injected. Tolerances: tokens and indices exactly, series to 2e-4 (float32
+conv stacks), enhanced series to 5e-4 of their scale (the U-Net on top).
 """
 
 import json
@@ -20,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from tvqvae_tpu.config import Config as JConfig
+from tvqvae_tpu.models.fidelity_enhancer import FidelityEnhancer as JFidelityEnhancer
 from tvqvae_tpu.models import maskgit as jmg
 from tvqvae_tpu.models.stage1 import init_stage1
 from tvqvae_tpu.models.stage1 import Stage1Spec as JStage1Spec
@@ -28,6 +33,8 @@ from tvqvae_tpu.train.stage2 import init_stage2, make_prior_apply_fns, make_samp
 from tvqvae_tpu.utils.scaler import MinMaxScaler as JMinMaxScaler
 from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.generation import TrainedModelSampler
+from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import encode_tokens, iterative_decoding
 from tvqvae_tpu_torch.serving import GenerationService, make_server
 from tvqvae_tpu_torch.utils.scaler import MinMaxScaler
@@ -46,6 +53,7 @@ CFG = {
         "prior_model_l": {"hidden_dim": 16, "n_layers": 2, "heads": 2},
         "prior_model_h": {"hidden_dim": 8, "n_layers": 1, "heads": 1},
     },
+    "fidelity_enhancer": {"dim": 8, "dim_mults": [1, 2], "resnet_block_groups": 4},
 }
 
 
@@ -214,12 +222,121 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"stage3": {}}, {"use_fidelity_enhancer": True}, {"compute_dtype": "bfloat16"}, {"ess": True},
+    {"stage3": "seeded"}, {"use_fidelity_enhancer": True}, {"compute_dtype": "bfloat16"},
+    {"ess": True},
 ])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(world, fe_world, kw):
+    """bfloat16 decoding and ESS are not ported and raise
+    ``NotImplementedError``. The fidelity enhancer is: a well-formed stage3
+    tree builds (and stays off unless asked for), and
+    ``use_fidelity_enhancer`` without one raises ``ValueError``, as the JAX
+    sampler does."""
     cfg_dict = dict(CFG)
     if kw.pop("ess", False):
         cfg_dict["MaskGIT"] = {**CFG["MaskGIT"], "ESS": {"use": True}}
-    with pytest.raises(NotImplementedError):
+    if kw.get("stage3") == "seeded":
+        s = TrainedModelSampler(Config.from_dict(cfg_dict), *_trees(world), input_length=L,
+                                in_channels=C, n_classes=N_CLASSES, device="cpu",
+                                stage3=fe_world["stage3"])
+        assert s.fe is not None and not s.use_fe
+        return
+    error = ValueError if kw.get("use_fidelity_enhancer") else NotImplementedError
+    with pytest.raises(error):
         TrainedModelSampler(Config.from_dict(cfg_dict), {}, {}, input_length=L,
                             in_channels=C, n_classes=N_CLASSES, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# the fidelity enhancer
+
+
+def _trees(world):
+    f = world["frozen"]
+    return ({"params": f.params, "batch_stats": f.batch_stats, "vq_l": f.vq_l, "vq_h": f.vq_h},
+            {"params": world["p2"], "h_stats": world["h_stats"]})
+
+
+def _to_flax(state_dict) -> dict:
+    """A port enhancer's state dict as the JAX package's parameter tree:
+    conv kernels (O, I, k) -> (k, I, O), GroupNorm weight -> scale."""
+    tree = {}
+    for key, v in state_dict.items():
+        *mods, leaf = key.split(".")
+        a = v.detach().numpy()
+        if leaf == "weight":
+            leaf, a = (("scale", a) if mods[-1].startswith("GroupNorm")
+                       else ("kernel", a.transpose(2, 1, 0)))
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return tree
+
+
+@pytest.fixture(scope="module")
+def fe_world(world):
+    gen = torch.Generator().manual_seed(6)
+    fe = init_weights_(FidelityEnhancer.from_config(Config.from_dict(CFG), L, C), gen)
+    with torch.no_grad():  # norms away from their identity values
+        for name, p in fe.named_parameters():
+            if "GroupNorm" in name or name.endswith(".g"):
+                p.copy_((0.5 + torch.rand(p.shape, generator=gen)) if name.endswith(("weight", ".g"))
+                        else 0.1 * torch.randn(p.shape, generator=gen))
+    stage3 = {"params": _to_flax(fe.state_dict()), "tau": np.float32(0.25)}
+    port = TrainedModelSampler(Config.from_dict(CFG), *_trees(world), input_length=L,
+                               in_channels=C, n_classes=N_CLASSES, batch_size=4, device="cpu",
+                               stage3=stage3, use_fidelity_enhancer=True)
+    jfe = JFidelityEnhancer(input_length=L, in_channels=C, dim=8, dim_mults=(1, 2),
+                            resnet_block_groups=4)
+    j_apply = jax.jit(lambda x: jfe.apply({"params": stage3["params"]}, x, False))
+    return dict(port=port, stage3=stage3, j_apply=j_apply)
+
+
+def test_sample_with_fidelity_enhancer_matches_jax(world, fe_world):
+    """The enhancer refines x only: x_l and x_h are the plain sampler's."""
+    w, num = world, 4
+    rng = jax.random.key(12)
+    ref_l, ref_h, ref_x = make_sampling_fn(w["model"], w["t_l"], w["t_h"], w["spec"])(
+        w["frozen"], w["p2"], w["h_stats"], rng, num, None)
+    ref = np.asarray(fe_world["j_apply"](ref_x))
+    x_l, x_h, x = fe_world["port"].sample(num, noise=[jax_decode_noise(rng, w["spec"], num)])
+    np.testing.assert_allclose(x_l, np.asarray(ref_l), atol=ATOL)
+    np.testing.assert_allclose(x_h, np.asarray(ref_h), atol=ATOL)
+    assert x.shape == (num, C, L)
+    err = np.abs(x - ref).max() / np.abs(ref).max()
+    assert err <= 5e-4, err
+    assert np.abs(x - (x_l + x_h)).max() > 1e-2  # the enhancer did act
+
+
+@pytest.mark.parametrize("length", [L, 90])
+def test_enhance_matches_jax(fe_world, length):
+    """In batches of 4 (6 series: the last batch partial); another length is
+    resized to ``input_length`` first."""
+    x = np.random.default_rng(4).normal(size=(6, C, length)).astype(np.float32)
+    out = fe_world["port"].enhance(x)
+    ref = np.asarray(fe_world["j_apply"](jnp.asarray(x)))
+    assert out.shape == (6, C, L)
+    err = np.abs(out - ref).max() / np.abs(ref).max()
+    assert err <= 5e-4, err
+
+
+def test_service_reports_the_fidelity_enhancer(world, fe_world):
+    assert GenerationService(fe_world["port"], features=FEATURES).info()["fidelity_enhancer"]
+    assert not GenerationService(world["port"], features=FEATURES).info()["fidelity_enhancer"]
+    with pytest.raises(ValueError, match="no fidelity enhancer"):
+        world["port"].enhance(np.zeros((1, C, L), np.float32))
+
+
+def test_from_init_draws_the_enhancer_after_the_priors():
+    cfg = Config.from_dict(CFG)
+    plain = TrainedModelSampler.from_init(cfg, L, C, N_CLASSES, seed=4, device="cpu", batch_size=2)
+    a, b = (TrainedModelSampler.from_init(cfg, L, C, N_CLASSES, seed=4, device="cpu", batch_size=2,
+                                          use_fidelity_enhancer=True) for _ in range(2))
+    assert a.use_fe and plain.fe is None
+    for k, v in plain.t_h.state_dict().items():  # the earlier draws are unchanged
+        assert torch.equal(a.t_h.state_dict()[k], v)
+    xa, xb, xp = (s.sample(3, seed=9) for s in (a, b, plain))
+    np.testing.assert_array_equal(xa[2], xb[2])
+    np.testing.assert_array_equal(xa[0], xp[0])
+    np.testing.assert_allclose(xa[2], a.enhance(xp[2]), rtol=0, atol=1e-6)
+    assert not np.allclose(xa[2], xp[2])

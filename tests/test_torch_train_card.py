@@ -1,5 +1,5 @@
-"""Training on the card: the VQ kernel feeding the stage-1 EMA, and the
-stage-2 token sweep and steps.
+"""Training on the card: the VQ kernel feeding the stage-1 EMA, the stage-2
+token sweep and steps, the stage-3 x' sweep and steps, and FCN steps.
 
 Torch only, so the card's machine (no JAX) runs it:
 
@@ -11,7 +11,8 @@ weights: once through the CUDA kernel, once with the VQ's plain twin put in
 its place. cuDNN's backward convolutions are not bit-deterministic, so the
 two are held to tolerances: indices equal at every step, losses to 1e-5
 relative, codebook statistics to 1e-4. Stage 2 runs small priors (16 wide x
-2 layers, 8 x 1) over that stage 1.
+2 layers, 8 x 1) over that stage 1, stage 3 a small enhancer (dim 8,
+dim_mults (1, 2)).
 """
 
 import functools
@@ -23,17 +24,24 @@ import torch
 from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.data.dataset import DatasetSplits
 from tvqvae_tpu_torch.models import vq as vq_module
-from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
+from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers, encode_tokens
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.ops import vq_kernel
 from tvqvae_tpu_torch.train.optim import adamw
-from tvqvae_tpu_torch.train.runner import train_stage1
+from tvqvae_tpu_torch.train.runner import fcn_train_step, train_fcn, train_stage1
 from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
 from tvqvae_tpu_torch.train.stage2 import (
     create_stage2_state,
     init_stage2,
     precompute_token_dataset,
     stage2_train_step_tokens,
+)
+from tvqvae_tpu_torch.train.stage3 import (
+    create_stage3_state,
+    init_stage3,
+    make_stage3_train_step_pre,
+    precompute_xprime_dataset,
 )
 from tvqvae_tpu_torch.utils.scaler import MinMaxScaler
 from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
@@ -159,6 +167,65 @@ def test_stage2_sweep_matches_plain_twin_and_steps_hold_no_memory_on_card(card, 
         sizes.append(torch.cuda.memory_allocated())
     assert sizes[2:] == [sizes[2]] * 20, sizes
     assert torch.isfinite(loss) and state.step == 22
+
+
+@pytest.mark.gpu
+def test_stage3_sweep_matches_plain_twin_and_steps_hold_no_memory_on_card(card, monkeypatch):
+    """The x' sweep of 70 series (three 32-row batches, 2 launches each)
+    through the kernel and through the plain twin: tokens equal, x' within
+    1e-4 of its scale (cuDNN may pick another algorithm between two
+    decodes); then 20 precomputed-x' steps with dropout on leave the
+    allocation unchanged after step 2."""
+    stage1, _ = _state()
+    frozen = FrozenStage1.from_stage1_state(stage1)
+    X = torch.from_numpy(np.random.default_rng(4).normal(size=(70, C, L)).astype(np.float32)).cuda()
+    before = vq_kernel.launch_count
+    xprime = precompute_xprime_dataset(frozen, X, keep_on_device=True)
+    assert vq_kernel.launch_count - before == 2 * 3
+    with torch.inference_mode():
+        tokens = [encode_tokens(frozen, X, band) for band in ("lf", "hf")]
+    with monkeypatch.context() as m:
+        m.setattr(vq_module, "nearest_codes_stats", vq_kernel.nearest_codes_stats_plain)
+        p_xprime = precompute_xprime_dataset(frozen, X, keep_on_device=True)
+        with torch.inference_mode():
+            p_tokens = [encode_tokens(frozen, X, band) for band in ("lf", "hf")]
+    assert all(torch.equal(a, b) for a, b in zip(tokens, p_tokens))
+    assert float((xprime - p_xprime).abs().max() / p_xprime.abs().max()) <= 1e-4
+
+    fe = init_stage3(FidelityEnhancer(L, C, 8, (1, 2), 4, 0.5), torch.Generator().manual_seed(0),
+                     "cuda")
+    state = create_stage3_state(fe, functools.partial(
+        adamw, learning_rate=warmup_cosine_schedule(1e-3, 40), weight_decay=0.01))
+    step = make_stage3_train_step_pre()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sizes = []
+    for t in range(22):
+        idx = torch.arange(16 * (t % 4), 16 * (t % 4) + 16, device="cuda")
+        loss = step(state, X[idx], xprime[idx], gen)[1]["loss"]
+        torch.cuda.synchronize()
+        sizes.append(torch.cuda.memory_allocated())
+    assert sizes[2:] == [sizes[2]] * 20, sizes
+    assert torch.isfinite(loss) and state.step == 22
+
+
+@pytest.mark.gpu
+def test_fcn_steps_hold_no_memory_on_card(card):
+    rng = np.random.default_rng(5)
+    X = torch.from_numpy(rng.normal(size=(64, C, L)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 3, size=(64, 1))).cuda()
+    data = DatasetSplits(X.cpu().numpy(), y.cpu().numpy(), X[:8].cpu().numpy(),
+                         y[:8].cpu().numpy(), MinMaxScaler(), 3)
+    fcn = train_fcn(CFG, data, max_epochs=2, batch_size=16, device="cuda")
+    assert next(fcn.parameters()).is_cuda and not fcn.training
+    optimizer, scheduler = adamw(fcn.parameters(), lambda t: 1e-3, weight_decay=1e-5)
+    sizes = []
+    for t in range(22):
+        idx = torch.arange(16 * (t % 4), 16 * (t % 4) + 16, device="cuda")
+        ce, acc = fcn_train_step(fcn, optimizer, scheduler, X[idx], y[idx])
+        torch.cuda.synchronize()
+        sizes.append(torch.cuda.memory_allocated())
+    assert sizes[2:] == [sizes[2]] * 20, sizes
+    assert torch.isfinite(ce) and 0.0 <= acc.item() <= 1.0
 
 
 def test_train_stage1_refuses_cuda_without_a_card():

@@ -6,11 +6,17 @@ codebook lookup, the frozen stage-1 decoders and the LF+HF sum
 (``train/stage2.make_sampling_fn``); ``reconstruct`` runs the stage-1 round
 trip, whose argmax quantization launches the VQ kernel once per band.
 
+With ``use_fidelity_enhancer`` the stage-3 U-Net refines the summed
+series ``x`` of every batch (not ``x_l`` or ``x_h``); ``enhance`` applies it
+to given series.
+
 The JAX sampler loads Orbax checkpoints; this one takes the trees they hold,
-in memory: stage 1 ``{"params", "batch_stats", "vq_l", "vq_h"}`` and stage 2
-``{"params": {"l", "h"}, "h_stats"}``. ``from_init`` builds seeded random
-weights instead. The fidelity enhancer (stage 3), bfloat16 decoding and the
-ESS sampler are not ported yet and raise ``NotImplementedError``.
+in memory: stage 1 ``{"params", "batch_stats", "vq_l", "vq_h"}``, stage 2
+``{"params": {"l", "h"}, "h_stats"}`` and stage 3 ``{"params": {"Unet1D_0":
+...}}`` (its ``tau``, which the SVQ τ-search reads, is not used here).
+``from_init`` builds seeded random weights instead.
+bfloat16 decoding and the ESS sampler are not ported yet and raise
+``NotImplementedError``.
 """
 
 from typing import Mapping, Optional, Sequence, Tuple
@@ -26,14 +32,15 @@ from tvqvae_tpu_torch.models.maskgit import (
     decode_tokens,
     encode_tokens,
 )
+from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn
-from tvqvae_tpu_torch.utils.convert import prior_from_jax, stage1_from_jax
+from tvqvae_tpu_torch.train.stage3 import init_stage3
+from tvqvae_tpu_torch.utils.convert import fe_from_jax, prior_from_jax, stage1_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
 
 class TrainedModelSampler:
-    use_fe = False
     use_ess = False
 
     def __init__(
@@ -51,8 +58,8 @@ class TrainedModelSampler:
         compute_dtype: str = "float32",
         device="cuda",
     ):
-        if stage3 is not None or use_fidelity_enhancer:
-            raise NotImplementedError("the fidelity enhancer (stage 3) is not ported yet")
+        if use_fidelity_enhancer and stage3 is None:
+            raise ValueError("use_fidelity_enhancer=True needs a stage3 tree")
         if compute_dtype != "float32":
             raise NotImplementedError(f"compute_dtype={compute_dtype!r}: only float32 is ported")
         if cfg.maskgit.ess_use:
@@ -67,26 +74,36 @@ class TrainedModelSampler:
         sd_l, sd_h = prior_from_jax(params, stage2.get("h_stats"))
         t_l.load_state_dict(sd_l)
         t_h.load_state_dict(sd_h)
-        self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev)
+        fe = None
+        if stage3 is not None:
+            fe = FidelityEnhancer.from_config(cfg, input_length, in_channels)
+            fe.load_state_dict(fe_from_jax(stage3["params"]))
+        self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
+                       use_fidelity_enhancer)
 
     @classmethod
     def from_init(cls, cfg: Config, input_length: int, in_channels: int,
                   n_classes: int, seed: int = 0, device="cuda",
-                  batch_size: int = 32) -> "TrainedModelSampler":
+                  batch_size: int = 32, use_fidelity_enhancer: bool = False
+                  ) -> "TrainedModelSampler":
         """A sampler with seeded random weights at ``cfg``'s shapes: every
         draw comes from one CPU generator, so a seed gives the same weights
-        on every device."""
+        on every device. With ``use_fidelity_enhancer`` the enhancer's
+        weights are drawn after the priors' and it refines every sample."""
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels)
         model, vq_l, vq_h = init_stage1(spec, g, dev)
         frozen = FrozenStage1(model.eval(), vq_l, vq_h)
         t_l, t_h = init_stage2(*build_transformers(cfg, spec, n_classes), g, dev)
+        fe = (init_stage3(FidelityEnhancer.from_config(cfg, input_length, in_channels), g, dev)
+              if use_fidelity_enhancer else None)
         self = cls.__new__(cls)
-        self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev)
+        self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
+                       use_fidelity_enhancer)
         return self
 
-    def _assemble(self, cfg, frozen, t_l, t_h, n_classes, batch_size, device):
+    def _assemble(self, cfg, frozen, t_l, t_h, n_classes, batch_size, device, fe, use_fe):
         spec = frozen.model.spec
         self.device = device
         self.batch_size = batch_size
@@ -98,6 +115,8 @@ class TrainedModelSampler:
         self.frozen = frozen
         self.t_l, self.t_h = t_l.to(device).eval(), t_h.to(device).eval()
         self._sample_tokens = make_sampling_fn(frozen, self.t_l, self.t_h, self.mg_spec)
+        self.fe = None if fe is None else fe.to(device).eval()
+        self.use_fe = use_fe
 
     # ------------------------------------------------------------------
 
@@ -110,9 +129,10 @@ class TrainedModelSampler:
         seed: int = 0,
         noise: Optional[Sequence[dict]] = None,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Batched sampling; returns (x_l, x_h, x) host arrays (n, C, L).
-        ``noise``, when given, holds one ``iterative_decoding`` noise dict
-        per batch in place of the seeded draws."""
+        """Batched sampling; returns (x_l, x_h, x) host arrays (n, C, L), ``x``
+        through the fidelity enhancer when it is on. ``noise``, when given,
+        holds one ``iterative_decoding`` noise dict per batch in place of the
+        seeded draws."""
         if kind not in ("unconditional", "conditional"):
             raise ValueError(f"kind must be 'unconditional' or 'conditional', got {kind!r}")
         if kind == "conditional":
@@ -125,10 +145,12 @@ class TrainedModelSampler:
         outs = ([], [], [])
         for i, start in enumerate(range(0, n_samples, bs)):
             b = min(bs, n_samples - start)
-            xs = self._sample_tokens(b, class_index, generator=gen,
-                                     noise=None if noise is None else noise[i])
-            for acc, x in zip(outs, xs):
-                acc.append(x.cpu().numpy())
+            x_l, x_h, x = self._sample_tokens(b, class_index, generator=gen,
+                                              noise=None if noise is None else noise[i])
+            if self.use_fe:
+                x = self._enhance(x)
+            for acc, t in zip(outs, (x_l, x_h, x)):
+                acc.append(t.cpu().numpy())
         return tuple(np.concatenate(acc) for acc in outs)
 
     # ------------------------------------------------------------------
@@ -148,4 +170,21 @@ class TrainedModelSampler:
             s_h = encode_tokens(self.frozen, xb, "hf", svq_temp=temp, generator=gen)
             out = decode_tokens(self.frozen, s_l, "lf") + decode_tokens(self.frozen, s_h, "hf")
             outs.append(out.cpu().numpy())
+        return np.concatenate(outs)
+
+    @torch.inference_mode()
+    def _enhance(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fe(x)
+
+    def enhance(self, x: np.ndarray) -> np.ndarray:
+        """The fidelity enhancer (eval mode) over host series (n, C, L'), in
+        batches of ``batch_size``; a length other than ``input_length`` is
+        resized first. -> (n, C, input_length)."""
+        if self.fe is None:
+            raise ValueError("this sampler has no fidelity enhancer (stage3)")
+        outs = []
+        for start in range(0, x.shape[0], self.batch_size):
+            xb = torch.as_tensor(x[start:start + self.batch_size], dtype=torch.float32,
+                                 device=self.device)
+            outs.append(self._enhance(xb).cpu().numpy())
         return np.concatenate(outs)

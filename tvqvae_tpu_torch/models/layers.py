@@ -182,10 +182,11 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     ``generator``, from the distributions flax gives the JAX package's
     layers: convolution and linear kernels ``lecun_normal`` (a normal
     truncated to +-2, times 1/(sqrt(fan_in) * 0.8796), fan_in = input
-    channels times the kernel's taps) with zero bias; Snake ``a`` U(0.2, 0.5);
-    embeddings N(0, 1/dim) (``nn.Embed``'s default); norms and running
-    statistics keep their identity values. The draws differ from JAX's; the
-    distributions are the same."""
+    channels times the kernel's taps; ``WSConv1d`` is a ``Conv1d``) with zero
+    bias; Snake ``a`` U(0.2, 0.5); embeddings N(0, 1/dim) (``nn.Embed``'s
+    default); norms (BatchNorm, GroupNorm, ``ChanLayerNorm``) and running
+    statistics keep their identity values: scales 1, biases 0. The draws
+    differ from JAX's; the distributions are the same."""
     for m in module.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = m.weight

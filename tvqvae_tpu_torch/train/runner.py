@@ -1,22 +1,27 @@
-"""Stage-1 and stage-2 training orchestration.
+"""Training orchestration: the three stages and the FCN feature net.
 
-Port of the stage-1 and stage-2 parts of ``tvqvae_tpu/train/runner.py``:
-``_adamw``, ``_loop``, ``codebook_to_dict``/``codebook_from_dict``,
-``train_stage1`` and ``train_stage2``. The loops are the JAX package's
-device-data path: the train split (or, in stage 2, its token grids) is
-uploaded once, each step gathers its batch on the device by index, and
-stage-1 validation runs over the whole test split in fixed, wrap-padded
-batches with the padding masked out of the sums. Nothing reads a value back
-from the device between steps; the loop waits for the device only where it
-prints or validates.
+Port of ``tvqvae_tpu/train/runner.py``: ``_adamw``, ``_loop``,
+``codebook_to_dict``/``codebook_from_dict``, ``train_stage1``,
+``train_stage2``, ``train_stage3`` and ``train_fcn``. The loops are the JAX
+package's device-data path: the train split (in stage 2 its token grids, in
+stage 3 its x' set beside it) is uploaded once, each step gathers its batch
+on the device by index, and stage-1 validation runs over the whole test
+split in fixed, wrap-padded batches with the padding masked out of the sums.
+Nothing reads a value back from the device between steps; the loop waits for
+the device only where it prints or validates. Batches follow
+``make_batches(shuffle=True, seed=seed, repeat=True)``; the JAX device path
+permutes on the device with threefry instead, a deviation its own runner
+calls non-semantic.
 
-Stage 2 takes its frozen stage 1 in memory: ``FrozenStage1.from_stage1_state``
-of a ``train_stage1`` result (JAX's ``load_stage1_bundle`` reads it from a
-checkpoint), or ``FrozenStage1.from_state_dict`` of a JAX tree.
+Stages 2 and 3 take their frozen stage 1 in memory:
+``FrozenStage1.from_stage1_state`` of a ``train_stage1`` result (JAX's
+``load_stage1_bundle`` reads it from a checkpoint), or
+``FrozenStage1.from_state_dict`` of a JAX tree.
 
 Not ported yet (ROADMAP item 11): the checkpoint writer (``save_path``),
-mid-run snapshots and resume, and the ``scripts/train.py`` CLI. The
-runners return their final state instead.
+mid-run snapshots and resume, and the ``scripts/train.py`` and
+``scripts/train_fcn.py`` CLIs. The runners return their final state (the
+FCN runner its trained module) instead.
 """
 
 import functools
@@ -28,6 +33,9 @@ import torch
 
 from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.data.dataset import DatasetSplits, make_batches
+from tvqvae_tpu_torch.models.fcn import FCN
+from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.models.vq import CodebookState
@@ -45,9 +53,17 @@ from tvqvae_tpu_torch.train.stage2 import (
     precompute_token_dataset,
     stage2_train_step_tokens,
 )
+from tvqvae_tpu_torch.train.stage3 import (
+    Stage3TrainState,
+    create_stage3_state,
+    init_stage3,
+    make_stage3_train_step,
+    make_stage3_train_step_pre,
+    precompute_xprime_dataset,
+)
 from tvqvae_tpu_torch.utils.device import resolve_device
 from tvqvae_tpu_torch.utils.profiling import StepTimer
-from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
+from tvqvae_tpu_torch.utils.schedule import cosine_decay_schedule, warmup_cosine_schedule
 
 
 def codebook_to_dict(cb: CodebookState) -> dict:
@@ -229,6 +245,135 @@ def train_stage2(
     _loop("stage2", max_steps, train_once, None, logger,
           cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval)
     return state
+
+
+def train_stage3(
+    cfg: Config,
+    data: DatasetSplits,
+    frozen: FrozenStage1,
+    max_steps: Optional[int] = None,
+    tau: float = 0.0,
+    seed: int = 0,
+    logger=None,
+    stage2_ckpt=None,
+    metrics=None,
+    val_n_samples: Optional[int] = None,
+    bundle_steps: int = 1,
+    compute_dtype: str = "float32",
+    fast_norm: bool = False,
+    bf16_mu: bool = False,
+    bf16_nu: bool = False,
+    tp: int = 1,
+    device="cuda",
+    log_interval: int = 100,
+) -> Stage3TrainState:
+    """Train the fidelity enhancer from seeded random weights over ``frozen``
+    (on ``device``) for ``max_steps`` (default: the config's) and return the
+    final state.
+
+    At tau = 0 one sweep computes x' for the train split through the VQ
+    kernel (batches of ``max(batch_size, 32)``) and the steps gather (x, x')
+    pairs; at tau > 0 each step runs its own stochastic round trip. The JAX
+    runner's ``precompute=False`` at tau = 0 serves only its multi-host feed
+    and is not here: ``train/stage3.py::make_stage3_train_step`` is that
+    step. Batches of ``dataset.batch_sizes["stage3"]``;
+    the SVQ draws and the dropout masks come from a generator seeded
+    ``seed + 1``. The validation-time sampling metrics (``stage2_ckpt``,
+    ``metrics``, ``val_n_samples``: ROADMAP item 12), step bundles, reduced
+    precision and tensor parallelism of the JAX runner are not ported and
+    raise ``NotImplementedError``; so does a perceptual loss weight > 0."""
+    _unported(stage2_ckpt=stage2_ckpt is not None, metrics=metrics is not None,
+              val_n_samples=val_n_samples is not None, bundle_steps=bundle_steps > 1,
+              compute_dtype=compute_dtype != "float32", fast_norm=fast_norm, bf16_mu=bf16_mu,
+              bf16_nu=bf16_nu, tp=tp > 1)
+    dev = resolve_device(device)
+    if frozen.vq_l.embed.device.type != dev.type:
+        raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
+    batch_size = cfg.dataset.batch_sizes.get("stage3", 16)
+    max_steps = max_steps or cfg.trainer_params.max_steps["stage3"]
+    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+    percept = cfg.fidelity_enhancer.percept_loss_weight
+    precompute = tau == 0.0
+    step_fn = (make_stage3_train_step_pre(percept) if precompute
+               else make_stage3_train_step(frozen, tau, percept))
+
+    fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels),
+                     torch.Generator().manual_seed(seed), dev)
+    state = create_stage3_state(fe, _adamw(cfg, max_steps))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    X_dev = torch.from_numpy(data.X_train).to(dev)
+    if precompute:
+        t0 = time.time()
+        xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
+                                           keep_on_device=True)
+        print(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
+
+        def train_once(step):
+            idx = order[step - 1]
+            return step_fn(state, X_dev[idx], xprime[idx], gen)[1]
+    else:
+        def train_once(step):
+            return step_fn(state, X_dev[order[step - 1]], gen)[1]
+
+    _loop("stage3", max_steps, train_once, None, logger,
+          cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval)
+    return state
+
+
+def fcn_train_step(fcn: FCN, optimizer, scheduler, x: torch.Tensor, y: torch.Tensor):
+    """One supervised step: softmax cross-entropy of ``fcn(x, train=True)``
+    against the labels ``y[:, 0]``, one optimizer and schedule step. ->
+    (mean cross-entropy, accuracy), 0-dim device tensors."""
+    labels = y[:, 0].long()
+    logits = fcn(x, train=True)
+    ce = torch.nn.functional.cross_entropy(logits, labels)
+    optimizer.zero_grad(set_to_none=True)
+    ce.backward()
+    optimizer.step()
+    scheduler.step()
+    return ce.detach(), (logits.detach().argmax(-1) == labels).float().mean()
+
+
+def train_fcn(
+    cfg: Config,
+    data: DatasetSplits,
+    logger=None,
+    max_epochs: int = 1000,
+    batch_size: int = 256,
+    lr: float = 1e-3,
+    weight_decay: float = 1e-5,
+    seed: int = 0,
+    device="cuda",
+    log_interval: int = 50,
+) -> FCN:
+    """Supervised FCN classifier training from seeded random weights ->
+    the trained ``FCN`` in eval mode (its state dict: the parameters and the
+    BatchNorm statistics). ``max_epochs`` counts optimizer *steps*, as the
+    JAX runner does (the reference caps Lightning at ``max_steps=max_epochs``),
+    at batches of ``min(batch_size, N)``. Its own optimiser, not the stages':
+    AdamW with weight decay ``weight_decay`` over ``cosine_decay_schedule(lr,
+    max_epochs)``. ``cfg`` is unused, as in JAX (which writes it into the
+    checkpoint's metadata; no checkpoint yet, ROADMAP item 11).
+    ``logger.log_metrics`` gets ``train/loss`` and ``train/acc`` as 0-dim
+    device tensors every ``log_interval`` steps."""
+    dev = resolve_device(device)
+    max_steps = max_epochs
+    bs = min(batch_size, len(data.X_train))
+    order = _batch_order(len(data.X_train), bs, max_steps, seed, dev)
+    fcn = init_weights_(FCN(data.in_channels, data.n_classes),
+                        torch.Generator().manual_seed(seed)).to(dev)
+    optimizer, scheduler = adamw(fcn.parameters(), cosine_decay_schedule(lr, max_steps),
+                                 weight_decay=weight_decay)
+    X_dev = torch.from_numpy(data.X_train).to(dev)
+    y_dev = torch.from_numpy(data.y_train).to(dev)
+    for step in range(1, max_steps + 1):
+        idx = order[step - 1]
+        ce, acc = fcn_train_step(fcn, optimizer, scheduler, X_dev[idx], y_dev[idx])
+        if logger and step % log_interval == 0:
+            logger.log_metrics({"train/loss": ce, "train/acc": acc}, step)
+        if step % 200 == 0 or step == max_steps:
+            print(f"[fcn] step {step}/{max_steps} ce={float(ce):.4f} acc={float(acc):.3f}")
+    return fcn.eval()
 
 
 def _make_eval(state: Stage1TrainState, X_test: np.ndarray, batch_size: int, dev):

@@ -9,6 +9,7 @@ per-leaf rename and transpose, decided by the leaf's name and rank:
     kernel of ConvTranspose2dTorch_*        -> weight (I, O, kh, kw), spatially
         flipped (the inverse of tvqvae_tpu/utils/import_reference.py:_convT2d)
     scale (norms), embedding    -> weight
+    g (ChanLayerNorm), a (Snake) -> g, a
     batch_stats mean / var      -> running_mean / running_var
 
 Inputs are nested mappings of numpy (or numpy-convertible) arrays, as the
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 _RENAME = {"bias": "bias", "scale": "weight", "embedding": "weight", "a": "a",
-           "logit_bias": "logit_bias"}
+           "logit_bias": "logit_bias", "g": "g"}
 _CODEBOOK_FIELDS = ("embed", "embed_avg", "cluster_size", "initted")
 
 
@@ -93,3 +94,15 @@ def prior_from_jax(params: Mapping, h_stats: Mapping = None):
         params_to_state_dict(params["l"]),
         params_to_state_dict(params["h"], h_stats),
     )
+
+
+def fe_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """Stage-3 params ``{"Unet1D_0": ...}`` -> state dict of the port's
+    ``FidelityEnhancer`` (``WSConv1d`` kernels and the ``ChanLayerNorm``
+    scale ``g`` included)."""
+    return params_to_state_dict(params)
+
+
+def fcn_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """FCN ``{"params", "batch_stats"}`` -> state dict of the port's ``FCN``."""
+    return params_to_state_dict(variables["params"], variables.get("batch_stats"))

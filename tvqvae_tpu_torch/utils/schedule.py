@@ -1,4 +1,5 @@
-"""Learning-rate schedule: linear warmup then cosine annealing.
+"""Learning-rate schedules: linear warmup then cosine annealing (the three
+stages), and a plain cosine decay (the FCN, ``cosine_decay_schedule``).
 
 Port of ``tvqvae_tpu/utils/schedule.py``, which returns
 ``optax.warmup_cosine_decay_schedule(0, lr, int(max_steps * rate), max_steps,
@@ -25,8 +26,8 @@ def warmup_cosine_schedule(
     min_lr: float = 1e-6,
 ) -> Callable[[int], float]:
     """Step count -> learning rate."""
-    if not 0.0 < linear_warmup_rate < 1.0:
-        raise ValueError(f"need 0 < linear_warmup_rate < 1, got {linear_warmup_rate}")
+    if not 0.0 <= linear_warmup_rate < 1.0:
+        raise ValueError(f"need 0 <= linear_warmup_rate < 1, got {linear_warmup_rate}")
     warmup = int(max_steps * linear_warmup_rate)
     decay = max_steps - warmup
     if decay <= 0:
@@ -40,3 +41,10 @@ def warmup_cosine_schedule(
         return lr * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay)) + alpha)
 
     return schedule
+
+
+def cosine_decay_schedule(lr: float, decay_steps: int) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule(lr, decay_steps)`` (alpha 0, exponent 1):
+    the schedule above with no warmup and min_lr 0. ``train_fcn``'s
+    schedule: lr at the first step, 0 from step T on."""
+    return warmup_cosine_schedule(lr, decay_steps, 0.0, 0.0)
