@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 It needs no JAX and no network. Phases, each fatal on failure:
 
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
-  2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc.
+  2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc,
+     while the published-width sampler of phase 4 is built.
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, the K sweep and one ragged shape, with times,
      device time per launched kernel (torch.profiler) and bounds.
@@ -18,27 +19,40 @@ It needs no JAX and no network. Phases, each fatal on failure:
      random weights), ``reconstruct`` of 64 series (two launches of the VQ
      kernel per batch), and the HTTP server answering three requests.
   7. train: the counters set to 0 again, ``train_stage1`` at the published
-     width (``Config()``, dropout as configured) for 40 steps on 320
-     synthetic series (288 train, 32 test): two VQ kernel launches per step
-     and per validation batch, a finite loss that falls after the warmup,
-     steady ms per step (CUDA events), peak memory.
-  8. stage 2: the counters set to 0 again, the trained stage 1 frozen and
-     ``train_stage2`` at the published width (priors 128x4Lx2H and
-     32x1Lx1H, B=16, dropout 0.3, p_unconditional 0.2) for 200 steps on the
+     width (``Config()``, dropout as configured) for 30 steps on 320
+     synthetic series (288 train, 32 test), writing its checkpoint as the
+     train CLI lays them out (``models/trajectories/stage1`` in a temp
+     directory): two VQ kernel launches per step and per validation batch,
+     a finite loss that falls after the warmup, steady ms per step (CUDA
+     events), peak memory.
+  8. stage 2: the counters set to 0 again, the trained stage 1 read back
+     from its checkpoint (``load_stage1_bundle``) and ``train_stage2``,
+     writing ``stage2``, at the published width (priors 128x4Lx2H and
+     32x1Lx1H, B=16, dropout 0.3, p_unconditional 0.2) for 120 steps on the
      precomputed-token path: the sweep's VQ launches (2 per 64-series
      batch), a finite loss that falls, steady ms per step past a 20-step
      warmup (CUDA events), peak memory.
   9. stage 3: the counters set to 0 again, ``train_stage3`` over the same
-     frozen stage 1 at the published width (``Config()``: enhancer dim 8,
-     dim_mults (1, 2, 4, 8), 4 groups, dropout 0.5, B=16) for 120 steps on
+     stage 1 read from disk, writing ``stage3``, at the published width (``Config()``: enhancer dim 8,
+     dim_mults (1, 2, 4, 8), 4 groups, dropout 0.5, B=16) for 60 steps on
      the precomputed-x' path: the x' sweep's VQ launches (2 per 32-series
      batch) and none in the steps, a finite loss that falls, steady ms per
      step past a 20-step warmup (CUDA events), the memory it adds, the
      enhancer's parameter count.
- 10. fcn: ``train_fcn`` (128/256/128 channels, kernels 8/5/3) for 60 steps
-     at batch min(256, 288): a finite loss that falls, the 128-wide
-     features, train accuracy, steady ms per step, peak memory.
- 11. checks after the counted runs: the reconstruct tokens against the
+ 10. fcn: ``train_fcn`` (128/256/128 channels, kernels 8/5/3) for 45 steps
+     at batch min(256, 288), writing ``fcn``: a finite loss that falls, the
+     128-wide features, train accuracy, steady ms per step, peak memory.
+ 11. ckpt: each checkpoint's bytes, write and read seconds; one
+     published-width stage-1 snapshot's bytes and stall; then, the counters
+     set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
+     published width against the in-memory sampler of the trained states
+     with the same noise (a 32-batch: tokens equal, series within 1e-5 of
+     their scale; ``reconstruct`` of 64 series: 4 VQ launches), and one
+     HTTP request to the service the serve CLI builds from disk; then the
+     generate CLI starts in a subprocess (64 series, raw and enhanced:
+     finite, in original units) and runs beside the untimed checks below,
+     which wait for it before the timed ones.
+ 12. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
      three training steps of each stage; one more published-width training
@@ -52,25 +66,30 @@ It needs no JAX and no network. Phases, each fatal on failure:
      small stage 3 and a small FCN on the card against the CPU; the
      published-width enhancer on the card against the CPU and a float64
      witness; the sampler with a seeded enhancer, and the trained enhancer
-     over a batch sampled from the trained priors.
- 12. profile: device time by kernel and the device's idle share over one
+     over a batch sampled from the trained priors; a small stage 1 resumed
+     from its snapshot against the same run straight through.
+ 13. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage
      and one FCN step (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero before that line.
+raises and exits non-zero before that line. Without a card, or copied out of
+a checkout (the package does not import), it exits 1 at once.
 """
 
+import dataclasses
 import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.client import HTTPConnection
 
 import numpy as np
@@ -84,10 +103,13 @@ KERNEL_SHAPES = [(432, 32, 128), (864, 32, 128), (1728, 32, 128), (3456, 32, 128
 CHECK_SHAPES = KERNEL_SHAPES + [(865, 33, 20)]  # a ragged shape: 4-byte copies, padded dims
 MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two per batch
 B, C, L, N_CLASSES = 32, 4, 4633, 5
-TRAIN_STEPS, TRAIN_SERIES = 40, 320
-STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 200, 20, 64
-STAGE3_STEPS, STAGE3_WARMUP, XPRIME_BATCH = 120, 20, 32
-FCN_STEPS, FCN_WARMUP = 60, 10
+TRAIN_STEPS, TRAIN_SERIES = 30, 320
+STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 120, 20, 64
+STAGE3_STEPS, STAGE3_WARMUP, XPRIME_BATCH = 60, 20, 32
+FCN_STEPS, FCN_WARMUP = 45, 10
+# the schedule lengths of the small card-vs-CPU checks, apart from the depths
+# above: their float64-witnessed bounds were set at these learning rates
+SMALL_STEPS, SMALL_FCN_STEPS = 40, 60
 VQ_KERNELS = ("assign_kernel", "merge_stats_kernel", "final_kernel")  # csrc/vq_nearest.cu
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
@@ -142,13 +164,47 @@ def kernel_names(events):
     return by_name
 
 
+def kernel_device_ms(torch, vq_kernel, inputs, iters=20):
+    """{shape: {kernel name: (launches, device ms) per call}} of ``iters``
+    calls at each shape of ``inputs`` ({shape: (flat, embed)}), from one
+    profiler session: each shape's calls sit in a ``record_function`` range
+    that starts with a 5 ms pause and ends with a synchronise, and a device
+    event belongs to the last range that started before it (the pause
+    absorbs an offset between the host's and the device's clocks)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for shape, (flat, embed) in inputs.items():
+            with record_function(f"vq_calls {shape}"):
+                time.sleep(0.005)
+                for _ in range(iters):
+                    vq_kernel.nearest_codes_stats(flat, embed)
+                torch.cuda.synchronize()
+    events = prof.events()
+    starts = {e.name: e.time_range.start for e in events if e.name.startswith("vq_calls ")
+              and e.device_type == DeviceType.CPU}
+    order = sorted((starts[f"vq_calls {shape}"], shape) for shape in inputs
+                   if f"vq_calls {shape}" in starts)
+    mine = {shape: [] for shape in inputs}
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        owner = [shape for start, shape in order if start <= e.time_range.start]
+        if owner:
+            mine[owner[-1]].append((e.name, e.time_range.end - e.time_range.start))
+    return {shape: {k: (n / iters, t / 1e3 / iters) for k, (n, t) in kernel_names(ev).items()}
+            for shape, ev in mine.items()}
+
+
 def kernel_phase(torch, vq_kernel):
     """The VQ kernel against its plain version at every shape of CHECK_SHAPES;
     at KERNEL_SHAPES also its time (events), device time per kernel per call
     (profiler), the bound, and the times of the plain version, of
     cdist+argmin and of the fp32 product flat @ embed.T alone."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {}
+    results, inputs, lines = {}, {}, {}
     for M, K, D in CHECK_SHAPES:
         flat = torch.randn(M, D, device="cuda", generator=gen)
         embed = torch.randn(K, D, device="cuda", generator=gen)
@@ -183,29 +239,27 @@ def kernel_phase(torch, vq_kernel):
         lib_ms = time_ms(torch, lambda: torch.cdist(flat, embed).argmin(-1))
         mm_ms = time_ms(torch, lambda: flat @ embed.T)  # cuBLAS fp32: the distances' product alone
         bound_ms, bound_by = vq_bound(M, K, D)
-        iters = 20
-        _, events = device_events(torch, lambda: [vq_kernel.nearest_codes_stats(flat, embed)
-                                                  for _ in range(iters)])
-        by_kernel = {k: (n / iters, t / 1e3 / iters) for k, (n, t) in kernel_names(events).items()}
-        device_ms = sum(t for _, t in by_kernel.values()) or None
         results[(M, K, D)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms)
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        inputs[(M, K, D)] = (flat, embed)
+        lines[(M, K, D)] = (f"{line}, {ms:.4f} ms/call, plain {plain_ms:.4f} ms, bound "
+                            f"{bound_ms:.5f} ms ({bound_by}), library_ms {lib_ms:.4f} (cdist+argmin: "
+                            f"idx only), fp32 matmul alone {mm_ms:.4f} ms")
+    for shape, by_kernel in kernel_device_ms(torch, vq_kernel, inputs).items():
+        device_ms = sum(t for _, t in by_kernel.values()) or None
+        results[shape]["device_ms"] = device_ms
         split = ", ".join(f"{k} {t:.5f} ms x{n:g}" for k, (n, t) in by_kernel.items())
-        print(f"{line}, {ms:.4f} ms/call, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-              f"({bound_by}), library_ms {lib_ms:.4f} (cdist+argmin: idx only), fp32 "
-              f"matmul alone {mm_ms:.4f} ms; device ms "
-              f"per call {device_ms if device_ms is None else f'{device_ms:.5f}'}: "
+        print(f"{lines[shape]}; device ms per call "
+              f"{device_ms if device_ms is None else f'{device_ms:.5f}'}: "
               f"{split or 'not measured'}", flush=True)
     return results
 
 
 def serving_phase(sampler):
-    from tvqvae_tpu_torch.serving import GenerationService, make_server
+    from tvqvae_tpu_torch.serving import GenerationService
 
     svc = GenerationService(sampler, features=["latitude", "longitude", "altitude", "timedelta"])
-    srv = make_server(svc, "127.0.0.1", 0)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
+    srv = make_server_thread(svc)
     try:
         port = srv.server_address[1]
         for body, n, labels in (({"n": 4, "seed": 1}, 4, [-1] * 4),
@@ -224,10 +278,239 @@ def serving_phase(sampler):
             print(f"[serve] {json.dumps(body)} -> {out['shape']} in "
                   f"{time.perf_counter() - t0:.3f} s", flush=True)
     finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
-    check(not thread.is_alive(), "server thread did not stop")
+        stop_server(srv)
+
+class Work:
+    """The run's files under one temp directory: the synthetic dataset and,
+    as the train CLI lays them out, ``models/<dataset stem>/stage{1,2,3}``
+    and ``fcn``."""
+
+    def __init__(self, root):
+        self.root = root
+        self.dataset = os.path.join(root, "trajectories.npz")
+        self.models = os.path.join(root, "models")
+        ckpt = os.path.join(self.models, "trajectories")
+        self.stage = {s: os.path.join(ckpt, f"stage{s}") for s in ("1", "2", "3")}
+        self.stage["fcn"] = os.path.join(ckpt, "fcn")
+
+
+def generate_subprocess(work, cli_args):
+    """``python -m tvqvae_tpu_torch.scripts.generate`` over the written
+    checkpoints (64 series, raw and enhanced), started in the background."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # its host work is file reads and numpy; two threads leave the cores to
+    # the card-vs-CPU checks that run beside it
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "OMP_NUM_THREADS": "2"}
+    cmd = [sys.executable, "-m", "tvqvae_tpu_torch.scripts.generate", "--dataset_file",
+           work.dataset, "--model_save_dir", work.models, "--n_samples", str(2 * B),
+           "--synthetic_save_dir", os.path.join(work.root, "synthetic"),
+           "--synthetic_fidelity_dir", os.path.join(work.root, "synthetic_fe"), *cli_args]
+    return subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def check_generated(proc, t0, work):
+    """Wait for ``generate_subprocess`` and check its two ``.npz`` files:
+    finite, original units (altitude >= 0, timedelta[:, 0] = 0)."""
+    out, _ = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"generate exited {proc.returncode}:\n{out[-3000:]}")
+    shapes = []
+    for path in (os.path.join(work.root, "synthetic", "synthetic.npz"),
+                 os.path.join(work.root, "synthetic_fe", "synthetic_fe.npz")):
+        z = np.load(path)
+        X, y = z["X"], z["y"]
+        check(X.shape[1:] == (C, L) and len(y) == len(X) and abs(len(X) - 2 * B) <= N_CLASSES,
+              f"{path}: X {X.shape}, y {y.shape}")
+        check(bool(np.isfinite(X).all()) and bool((X[:, 2] >= 0).all())
+              and bool((X[:, 3, 0] == 0).all()), f"{path}: not finite or not in original units")
+        shapes.append(X.shape)
+    print(f"[ckpt] generate CLI (a subprocess): {shapes[0][0]} raw and {shapes[1][0]} enhanced "
+          f"series {shapes[0][1:]} in original units, finite, altitude >= 0, timedelta[:, 0] = 0; "
+          f"{time.perf_counter() - t0:.1f} s from its start", flush=True)
+
+
+def ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3, n_classes, step_ms,
+               device="cuda", config=None):
+    """The written checkpoints: each one's bytes, write and read seconds; one
+    published-width stage-1 snapshot's bytes and stall; then, counted, the
+    sampler built from the checkpoints (``from_checkpoints``) against the
+    in-memory sampler of the same trained states with the same noise (a
+    32-batch: tokens equal, series within 1e-5 of their scale; reconstruct
+    of 64 series, 4 VQ launches), and one HTTP request to the service the
+    serve CLI builds from disk, with the generate CLI started beside it in a
+    subprocess. ``config``: a config file for ``Config()`` here and in the
+    CLIs. -> (the VQ kernel launches of the counted part, (the generate
+    subprocess, its start time) for ``check_generated``)."""
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1, encode_tokens, iterative_decoding
+    from tvqvae_tpu_torch.scripts import serve
+    from tvqvae_tpu_torch.scripts._cli import load_config
+    from tvqvae_tpu_torch.train.runner import train_state_payload
+    from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint, save_train_state
+
+    cfg = load_config(config)
+    cli_args = ["--device", device, *(["--config", config] if config else [])]
+    for name, path in work.stage.items():
+        t0 = time.perf_counter()
+        tree, meta = load_checkpoint(path)
+        t_read = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_checkpoint(path + ".rewrite", tree, meta)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        check(os.path.getsize(path + ".rewrite") == size, f"{name}: rewritten size differs")
+        os.remove(path + ".rewrite")
+        os.remove(path + ".rewrite.meta.json")
+        print(f"[ckpt] {os.path.basename(path)}: {size} bytes, write {t_write:.3f} s, read {t_read:.3f} s; meta "
+              f"completed_step {meta.get('completed_step')}", flush=True)
+
+    snap = os.path.join(work.root, "stage1.train")
+    gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(snap, train_state_payload(trained, gen))
+    stall = time.perf_counter() - t0
+    size = os.path.getsize(snap)
+    os.remove(snap)
+    interval = cfg.trainer_params.val_check_interval["stage1"]
+    share = stall / (interval * step_ms / 1e3)
+    print(f"[ckpt] published-width stage-1 snapshot (model, codebooks, AdamW, schedule, step, "
+          f"generator): {size} bytes, stall {stall:.3f} s (device-to-host copy and write, "
+          f"synchronous); {share:.4%} of a {interval}-step validation "
+          f"interval at {step_ms:.2f} ms/step", flush=True)
+
+    t_gen = time.perf_counter()
+    proc = generate_subprocess(work, cli_args)
+    try:
+        vq_kernel.launch_count = 0
+        t0 = time.perf_counter()
+        disk = TrainedModelSampler.from_checkpoints(cfg, work.stage["1"], work.stage["2"],
+                                                    work.stage["3"], use_fidelity_enhancer=True,
+                                                    batch_size=B, device=device)
+        t_build = time.perf_counter() - t0
+        mem = TrainedModelSampler.__new__(TrainedModelSampler)
+        mem._assemble(cfg, FrozenStage1.from_stage1_state(trained), stage2.t_l, stage2.t_h,
+                      n_classes, B, torch.device(device), stage3.fe, True)
+        spec = disk.mg_spec
+        rng = np.random.default_rng(23)
+        noise = {band: tuple(torch.from_numpy(-np.log(-np.log(rng.uniform(1e-12, 1.0, size))))
+                             .float() for size in ((T, B, tok, K), (T, B, tok)))
+                 for band, T, tok, K in (("l", spec.T_l, spec.tokens_l, spec.mask_token_l),
+                                         ("h", spec.T_h, spec.tokens_h, spec.mask_token_h))}
+        got = disk.sample(B, "conditional", class_index=2, noise=[noise])
+        series = np.random.default_rng(24).normal(size=(2 * B, C, L)).astype(np.float32)
+        before = vq_kernel.launch_count
+        rec = disk.reconstruct(series)
+        check(vq_kernel.launch_count - before == 4,
+              f"reconstruct from disk launched the VQ kernel {vq_kernel.launch_count - before} times")
+
+        parser = serve.build_argparser()
+        svc = serve.build_service(parser.parse_args(
+            ["--dataset_file", work.dataset, "--model_save_dir", work.models, "--use_fe",
+             *cli_args]), parser)
+        svc.warmup()
+        srv = make_server_thread(svc)
+        try:
+            conn = HTTPConnection("127.0.0.1", srv.server_address[1], timeout=300)
+            conn.request("POST", "/v1/generate", body=json.dumps({"n": 3, "class_index": 1}).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out = json.loads(resp.read())
+            conn.close()
+        finally:
+            stop_server(srv)
+        check(resp.status == 200 and out["shape"] == [3, C, L] and out["postprocessed"]
+              and bool(np.isfinite(np.asarray(out["X"])).all()), f"serve CLI answered {resp.status}")
+        launches = vq_kernel.launch_count
+
+        ref = mem.sample(B, "conditional", class_index=2, noise=[noise])
+        with torch.inference_mode():
+            toks = [iterative_decoding(spec, lambda a, c, s=s: s.t_l(a, None, c),
+                                       lambda a, b, c, s=s: s.t_h(a, b, c), B, 2, device=device,
+                                       noise=noise) for s in (disk, mem)]
+            xb = torch.from_numpy(series).to(device)
+            for band in ("lf", "hf"):
+                check(torch.equal(encode_tokens(disk.frozen, xb, band),
+                                  encode_tokens(mem.frozen, xb, band)),
+                      f"{band} tokens of the sampler from disk differ from the in-memory one's")
+        check(all(torch.equal(a, b) for a, b in zip(*toks)),
+              "tokens sampled from disk differ from the in-memory sampler's")
+        errs = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in (*zip(got, ref), (rec, mem.reconstruct(series)))]
+        check(max(errs) <= 1e-5, f"the sampler from disk is off the in-memory one by {errs}")
+        print(f"[ckpt] from_checkpoints at the published width (with the enhancer) built in "
+              f"{t_build:.2f} s; a {B}-batch against the in-memory sampler of the trained "
+              f"states with the same noise: tokens equal, x_l/x_h/x/reconstruct within "
+              f"{', '.join(f'{e:.3g}' for e in errs)} of their scale; reconstruct of {2 * B} "
+              f"series: 4 VQ launches; serve CLI service from disk answered {out['shape']}",
+              flush=True)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return launches, (proc, t_gen)
+
+
+def small_resume_check(torch, work, k=3, device="cuda"):
+    """A small stage 1 (dropout as configured) on the card for 2k steps with
+    validation every k, then its checkpoint deleted and the run repeated:
+    it resumes from the snapshot at step k and ends within the bounds of
+    ``small_train_check`` of the straight run (losses 1e-4 relative,
+    codebooks 1e-4 of 1 + |value|, parameters and BN statistics 1e-4, the
+    BatchNorm-cancelled biases and running means 1e-4 + 2 * sum(lr_t))."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import get_data, make_synthetic_trajectories, save_npz
+    from tvqvae_tpu_torch.models.stage1 import Stage1Model, Stage1Spec
+    from tvqvae_tpu_torch.train.runner import train_stage1
+    from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
+    from tvqvae_tpu_torch.utils.convert import stage1_from_jax
+    from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
+
+    Ls = 127
+    cfg = Config.from_dict({**SMALL_CFG, "dataset": {"batch_sizes": {"stage1": 8}},
+                            "trainer_params": {"val_check_interval": {"stage1": k}}})
+    path = os.path.join(work.root, "small.npz")
+    save_npz(path, *make_synthetic_trajectories(n=40, channels=C, length=Ls, seed=12))
+    data = get_data(path, cfg.dataset.features)
+    ckpt = os.path.join(work.root, "small", "stage1")
+    runs = []
+    for _ in range(2):
+        rec = StepRecorder(torch)
+        train_stage1(cfg, data, max_steps=2 * k, seed=2, logger=rec, device=device,
+                     log_interval=1, save_path=ckpt)
+        tree, meta = load_checkpoint(ckpt)
+        runs.append(([float(v) for v in rec.losses], stage1_from_jax(tree), meta))
+        os.remove(ckpt)
+        os.remove(ckpt + ".meta.json")
+    (ref_loss, ref, _), (dut_loss, dut, meta) = runs
+    check(len(ref_loss) == 2 * k and len(dut_loss) == k and meta["completed_step"] == 2 * k,
+          f"the resumed run logged {len(dut_loss)} steps, not {k}")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss[k:], dut_loss))
+    check(loss_err <= 1e-4, f"resumed stage 1: losses off by {loss_err} relative")
+    noise = 2 * sum(warmup_cosine_schedule(cfg.exp_params.lr, 2 * k)(t) for t in range(2 * k))
+    cancelled = biases_cancelled_by_batchnorm(Stage1Model(Stage1Spec.from_config(cfg, Ls, C)))
+    cb_err, worst = check_stage1_leaves("resumed stage 1", ref, dut, cancelled, noise)
+    print(f"[ckpt] small stage 1 on the card, {2 * k} steps straight against {k} + a resume + {k}: "
+          f"losses {dut_loss} vs {ref_loss[k:]}, rel err {loss_err:.3g}; codebooks {cb_err:.3g}, "
+          f"parameters and BN variances {worst['tight']:.3g}, BN-cancelled biases and running "
+          f"means {worst['cancelled']:.3g} (bound {1e-4 + noise:.3g})", flush=True)
+
+
+def make_server_thread(svc):
+    from tvqvae_tpu_torch.serving import make_server
+
+    srv = make_server(svc, "127.0.0.1", 0)
+    srv.thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    srv.thread.start()
+    return srv
+
+
+def stop_server(srv):
+    srv.shutdown()
+    srv.server_close()
+    srv.thread.join(timeout=30)
+    check(not srv.thread.is_alive(), "server thread did not stop")
 
 
 def device_events(torch, fn, ops=None):
@@ -309,24 +592,24 @@ class StepRecorder:
             self.val.append((step, metrics))
 
 
-def train_phase(torch, vq_kernel):
-    """``train_stage1`` at the published width, counted; -> (state, data,
-    steady ms per step, VQ kernel launches)."""
+def train_phase(torch, vq_kernel, work):
+    """``train_stage1`` at the published width, counted, writing its
+    checkpoint to ``work.stage["1"]``; -> (state, data, steady ms per step,
+    VQ kernel launches)."""
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.data import get_data, make_synthetic_trajectories, save_npz
     from tvqvae_tpu_torch.train.runner import train_stage1
 
     cfg = Config()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trajectories.npz")
-        save_npz(path, *make_synthetic_trajectories(n=TRAIN_SERIES, channels=C, length=L, seed=7))
-        data = get_data(path, cfg.dataset.features)
+    save_npz(work.dataset, *make_synthetic_trajectories(n=TRAIN_SERIES, channels=C, length=L,
+                                                        seed=7))
+    data = get_data(work.dataset, cfg.dataset.features)
     rec = StepRecorder(torch)
     torch.cuda.reset_peak_memory_stats()
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage1(cfg, data, max_steps=TRAIN_STEPS, device="cuda", logger=rec,
-                         log_interval=1)
+                         log_interval=1, save_path=work.stage["1"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vq_kernel.launch_count
@@ -346,7 +629,8 @@ def train_phase(torch, vq_kernel):
     val = rec.val[-1][1]
     n_params = sum(p.numel() for p in state.model.parameters())
     print(f"[train] published width B={B} C={C} L={L} ({n_params / 1e6:.1f} M parameters), "
-          f"{len(data.X_train)} train / {n_test} test series: {TRAIN_STEPS} steps in {wall:.1f} s (with init, upload and validation); "
+          f"{len(data.X_train)} train / {n_test} test series: {TRAIN_STEPS} steps in {wall:.1f} s "
+          f"(with init, upload, validation and the checkpoint); "
           f"steady {ms:.2f} ms/step = {1e3 / ms:.3f} steps/s (CUDA events, steps "
           f"{warm + 2}-{TRAIN_STEPS}); peak memory {peak_gb:.2f} GiB", flush=True)
     print(f"[train] loss step 1 {losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; mean of "
@@ -404,22 +688,28 @@ def published_train_twin_check(torch, trained, data, device="cuda"):
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
 
 
-def stage2_phase(torch, vq_kernel, trained, data, device="cuda"):
-    """``train_stage2`` at the published width over the frozen trained stage
-    1, counted; -> (frozen, state, steady ms per step, VQ kernel launches)."""
+def stage2_phase(torch, vq_kernel, work, data, device="cuda"):
+    """``train_stage2`` at the published width over the trained stage 1 read
+    back from its checkpoint (``load_stage1_bundle``), counted, writing its
+    own; -> (frozen, state, steady ms per step, VQ kernel launches)."""
     from tvqvae_tpu_torch.config import Config
-    from tvqvae_tpu_torch.models.maskgit import FrozenStage1
-    from tvqvae_tpu_torch.train.runner import train_stage2
+    from tvqvae_tpu_torch.train.runner import load_stage1_bundle, train_stage2
 
     cfg = Config()
-    frozen = FrozenStage1.from_stage1_state(trained)
+    t0 = time.perf_counter()
+    frozen, _, meta = load_stage1_bundle(cfg, work.stage["1"], device=device)
+    torch.cuda.synchronize()
+    check(meta["completed_step"] == TRAIN_STEPS and meta["input_length"] == L,
+          f"stage-1 checkpoint meta {dict((k, meta[k]) for k in meta if k != 'config')}")
+    print(f"[stage2] frozen stage 1 read from its checkpoint ({os.path.getsize(work.stage['1'])} "
+          f"bytes) in {time.perf_counter() - t0:.2f} s", flush=True)
     rec = StepRecorder(torch)
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 2 ** 30  # the earlier phases' models and states
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage2(cfg, data, frozen, max_steps=STAGE2_STEPS, device=device, logger=rec,
-                         log_interval=1)
+                         log_interval=1, save_path=work.stage["2"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vq_kernel.launch_count
@@ -577,7 +867,7 @@ def small_stage2_check(torch, devices=("cpu", "cuda"), steps=3):
         model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
         frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
         priors = init_stage2(*build_transformers(cfg, spec, 3), torch.Generator().manual_seed(4), dev)
-        state = create_stage2_state(*priors, _adamw(cfg, TRAIN_STEPS))
+        state = create_stage2_state(*priors, _adamw(cfg, SMALL_STEPS))
         step, enc = make_stage2_train_step(frozen), make_token_encode_fn(frozen)
         toks, losses = [], []
         for x, yb, nz in zip(xs, ys, noise):
@@ -603,9 +893,10 @@ def small_stage2_check(torch, devices=("cpu", "cuda"), steps=3):
           f"{worst:.3g}", flush=True)
 
 
-def stage3_phase(torch, vq_kernel, frozen, data, device="cuda"):
-    """``train_stage3`` at the published width over the frozen trained stage
-    1, counted; -> (state, steady ms per step, VQ kernel launches)."""
+def stage3_phase(torch, vq_kernel, work, frozen, data, device="cuda"):
+    """``train_stage3`` at the published width over the stage 1 read from
+    its checkpoint, counted, writing its own; -> (state, steady ms per step,
+    VQ kernel launches)."""
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.train.runner import train_stage3
 
@@ -616,7 +907,7 @@ def stage3_phase(torch, vq_kernel, frozen, data, device="cuda"):
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage3(cfg, data, frozen, max_steps=STAGE3_STEPS, device=device, logger=rec,
-                         log_interval=1)
+                         log_interval=1, save_path=work.stage["3"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vq_kernel.launch_count
@@ -645,9 +936,9 @@ def stage3_phase(torch, vq_kernel, frozen, data, device="cuda"):
     return state, ms, launches
 
 
-def fcn_phase(torch, data, device="cuda"):
-    """``train_fcn`` on the train split at batch min(256, N); -> (the trained
-    FCN, steady ms per step)."""
+def fcn_phase(torch, work, data, device="cuda"):
+    """``train_fcn`` on the train split at batch min(256, N), writing its
+    checkpoint; -> (the trained FCN, steady ms per step)."""
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.train.runner import train_fcn
 
@@ -655,7 +946,8 @@ def fcn_phase(torch, data, device="cuda"):
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
-    fcn = train_fcn(Config(), data, logger=rec, max_epochs=FCN_STEPS, device=device, log_interval=1)
+    fcn = train_fcn(Config(), data, logger=rec, max_epochs=FCN_STEPS, device=device, log_interval=1,
+                    save_path=work.stage["fcn"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -846,7 +1138,7 @@ def small_stage3_check(torch, devices=("cpu", "cuda"), steps=3):
         frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
         fe = init_stage3(FidelityEnhancer.from_config(cfg, Ls, C), torch.Generator().manual_seed(4), dev)
         fe0 = copy.deepcopy(fe)
-        state = create_stage3_state(fe, _adamw(cfg, TRAIN_STEPS))
+        state = create_stage3_state(fe, _adamw(cfg, SMALL_STEPS))
         xprime = precompute_xprime_dataset(frozen, xs.reshape(-1, C, Ls), batch_size=n)
         step = make_stage3_train_step(frozen)
         losses = [step(state, torch.from_numpy(x).to(dev))[1]["loss"].item() for x in xs]
@@ -858,7 +1150,7 @@ def small_stage3_check(torch, devices=("cpu", "cuda"), steps=3):
     check(loss_err <= 1e-5, f"small stage 3: losses off by {loss_err} relative")
     # the float64 witness: the CPU's precomputed steps from the same x', in float64
     exact_fe = fe0.double()
-    exact = create_stage3_state(exact_fe, _adamw(cfg, TRAIN_STEPS))
+    exact = create_stage3_state(exact_fe, _adamw(cfg, SMALL_STEPS))
     pre = make_stage3_train_step_pre()
     for x, xp in zip(xs, ref_xp.reshape(steps, n, C, Ls)):
         pre(exact, torch.from_numpy(x).double(), torch.from_numpy(xp).double())
@@ -940,7 +1232,7 @@ def small_fcn_check(torch, devices=("cpu", "cuda"), steps=3):
     xs = rng.normal(size=(steps, n, C, Ls)).astype(np.float32)
     ys = rng.integers(0, 3, size=(steps, n, 1))
     fcn0 = init_weights_(FCN(C, 3), torch.Generator().manual_seed(6))
-    schedule = cosine_decay_schedule(1e-3, FCN_STEPS)
+    schedule = cosine_decay_schedule(1e-3, SMALL_FCN_STEPS)
     runs = []
     for dev, dtype in (*((d, torch.float32) for d in devices), ("cpu", torch.float64)):
         m = copy.deepcopy(fcn0).to(dev, dtype)
@@ -1037,6 +1329,35 @@ def biases_cancelled_by_batchnorm(model) -> dict:
     return out
 
 
+def check_stage1_leaves(label, ref, dut, cancelled, noise):
+    """Hold ``dut`` to ``ref``, two stage-1 states laid out as
+    ``stage1_from_jax`` lays them out (the model's state dict and the
+    codebooks' ``vq_l.*``/``vq_h.*`` fields), to ``small_train_check``'s
+    bounds: codebooks within 1e-4 of 1 + |value|, ``initted`` equal, every
+    other leaf within 1e-4, and the ``cancelled`` biases and the running
+    means within 1e-4 + ``noise``. -> (codebook error, worst error of the
+    tight and of the cancelled leaves)."""
+    cb_err, worst = 0.0, {"tight": 0.0, "cancelled": 0.0}
+    for k, a in ref.items():
+        b = dut[k].cpu()
+        if k.endswith(("num_batches_tracked", "initted")):
+            check(bool((a.cpu() == b).all()), f"{label}: {k} differs")
+            continue
+        a, b = a.cpu().float(), b.float()
+        if k.startswith(("vq_l.", "vq_h.")):
+            # relative to the value too: a code no row has chosen yet has embed =
+            # embed_avg / ~eps, ~1e5 here, where one float32 ulp is 2^-6
+            cb_err = max(cb_err, float(((a - b).abs() / (1.0 + a.abs())).max()))
+            continue
+        err = float((a - b).abs().max())
+        loose = k in cancelled or k.endswith("running_mean")
+        check(err <= 1e-4 + (noise if loose else 0.0), f"{label}: {k} off by {err}")
+        kind = "cancelled" if loose else "tight"
+        worst[kind] = max(worst[kind], err)
+    check(cb_err <= 1e-4, f"{label}: codebooks off by {cb_err} of 1 + |value|")
+    return cb_err, worst
+
+
 def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
     """Three training steps of the same seeded small model (dropout 0) on the
     CPU (plain VQ) and on the card (kernel): indices equal at every step,
@@ -1054,7 +1375,7 @@ def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
                             "decoder": {**SMALL_CFG["decoder"], "dropout": 0.0}})
     Ls, n = 127, 8
     spec = Stage1Spec.from_config(cfg, Ls, C)
-    schedule = warmup_cosine_schedule(cfg.exp_params.lr, TRAIN_STEPS)
+    schedule = warmup_cosine_schedule(cfg.exp_params.lr, SMALL_STEPS)
     xs = np.random.default_rng(8).normal(size=(steps, n, C, Ls)).astype(np.float32)
     runs = []
     for dev in devices:
@@ -1073,26 +1394,15 @@ def small_train_check(torch, devices=("cpu", "cuda"), steps=3):
               f"small model training: indices differ at step {t + 1}")
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
     check(loss_err <= 1e-4, f"small model training: losses off by {loss_err} relative")
-    # relative to the value too: a code no row has chosen yet has embed =
-    # embed_avg / ~eps, ~1e5 here, where one float32 ulp is 2^-6
-    cb_err = 0.0
-    for band in ("vq_l", "vq_h"):
-        for f in ("embed", "embed_avg", "cluster_size"):
-            a = getattr(getattr(ref, band), f)
-            d = (a - getattr(getattr(dut, band), f).cpu()).abs() / (1.0 + a.abs())
-            cb_err = max(cb_err, float(d.max()))
-    check(cb_err <= 1e-4, f"small model training: codebooks off by {cb_err} of 1 + |value|")
     noise = 2 * sum(schedule(t) for t in range(steps))
-    cancelled = biases_cancelled_by_batchnorm(ref.model)
-    worst = {"tight": 0.0, "cancelled": 0.0}
-    for k, a in ref.model.state_dict().items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        err = float((a - dut.model.state_dict()[k].cpu()).abs().max())
-        loose = k in cancelled or k.endswith("running_mean")
-        check(err <= 1e-4 + (noise if loose else 0.0), f"small model training: {k} off by {err}")
-        kind = "cancelled" if loose else "tight"
-        worst[kind] = max(worst[kind], err)
+
+    def leaves(state):
+        return {**state.model.state_dict(), **{f"{band}.{c.name}": getattr(cb, c.name)
+                                               for band, cb in (("vq_l", state.vq_l), ("vq_h", state.vq_h))
+                                               for c in dataclasses.fields(cb)}}
+
+    cb_err, worst = check_stage1_leaves("small model training", leaves(ref), leaves(dut),
+                                        biases_cancelled_by_batchnorm(ref.model), noise)
     print(f"[reference] small model training, {steps} steps, card vs CPU: indices equal, losses "
           f"{dut_loss} vs {ref_loss}, rel err {loss_err:.3g}, codebooks {cb_err:.3g}, parameters and BN variances "
           f"{worst['tight']:.3g}, BN-cancelled biases and running means {worst['cancelled']:.3g} "
@@ -1109,7 +1419,6 @@ def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
     rounding alone takes this decode ~1e-4 of its scale from it on either
     device (PERF.md section 6)."""
     import copy
-    import dataclasses
 
     from tvqvae_tpu_torch.models.maskgit import FrozenStage1, decode_tokens, encode_tokens
 
@@ -1179,17 +1488,38 @@ def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda"
 
 
 def main():
+    """Exit 1 without a card, or outside a checkout (the package does not
+    import); else every phase, with the run's files in a temp directory."""
+    t_start = time.perf_counter()
     import torch
 
-    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    try:
+        import tvqvae_tpu_torch  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"chip_smoke: {e}; run it from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return smoke(torch, Work(root), t_start)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def smoke(torch, work, t_start):
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.generation import TrainedModelSampler
     from tvqvae_tpu_torch.models.maskgit import encode_tokens
     from tvqvae_tpu_torch.models.vq import lookup_codes
     from tvqvae_tpu_torch.ops import vq_kernel
+
+    marks = [("start", t_start)]
+
+    def lap(name):  # the script's length by phase, printed at the end
+        marks.append((name, time.perf_counter()))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -1197,19 +1527,28 @@ def main():
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
           flush=True)
 
-    t0 = time.perf_counter()
-    vq_kernel.build(verbose=True)
-    print(f"[build] vq_nearest.cu in {time.perf_counter() - t0:.1f} s", flush=True)
+    def timed_build():
+        t0 = time.perf_counter()
+        vq_kernel.build(verbose=True)
+        return time.perf_counter() - t0
+
+    # nvcc runs while the published sampler is built: nothing launches the
+    # kernel before the build's result is read
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(timed_build)
+        t0 = time.perf_counter()
+        sampler = TrainedModelSampler.from_init(Config(), L, C, N_CLASSES, seed=0, device="cuda",
+                                                batch_size=B)
+        print(f"[sampler] published width built in {time.perf_counter() - t0:.1f} s: "
+              f"tokens {sampler.s1_spec.tokens_l}/{sampler.s1_spec.tokens_h}", flush=True)
+        print(f"[build] vq_nearest.cu in {building.result():.1f} s", flush=True)
+    lap("build")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = kernel_phase(torch, vq_kernel)
+    lap("kernels")
 
-    t0 = time.perf_counter()
-    sampler = TrainedModelSampler.from_init(Config(), L, C, N_CLASSES, seed=0, device="cuda",
-                                            batch_size=B)
-    print(f"[sampler] published width built in {time.perf_counter() - t0:.1f} s: "
-          f"tokens {sampler.s1_spec.tokens_l}/{sampler.s1_spec.tokens_h}", flush=True)
     sampler.sample(B, seed=100)  # warm-up batch, before the counted run
 
     # ---- the main path, counted --------------------------------------
@@ -1243,14 +1582,42 @@ def main():
     serving_phase(sampler)
     serve_launches = vq_kernel.launch_count
     check(serve_launches > 0, "the served path never launched the VQ kernel")
+    lap("serve")
 
-    # ---- training, counted on its own ---------------------------------
-    trained, data, step_ms, train_launches = train_phase(torch, vq_kernel)
-    frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, trained, data)
-    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, frozen, data)
-    fcn, fcn_ms = fcn_phase(torch, data)
+    # ---- training, counted on its own, each stage written to disk -----
+    trained, data, step_ms, train_launches = train_phase(torch, vq_kernel, work)
+    lap("train")
+    frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, work, data)
+    lap("stage2")
+    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, work, frozen, data)
+    lap("stage3")
+    fcn, fcn_ms = fcn_phase(torch, work, data)
+    lap("fcn")
 
-    # ---- checks after the counted run ---------------------------------
+    # ---- the checkpoints: served and generated from disk, counted -----
+    ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
+                                           data.n_classes, step_ms)
+    lap("ckpt")
+
+    # ---- checks after the counted run: the untimed ones while the ------
+    # ---- generate CLI runs, then the timed ones and the profiles -------
+    try:
+        small_model_check(torch, Config, TrainedModelSampler)
+        small_train_check(torch)
+        published_train_twin_check(torch, trained, data)
+        published_width_check(torch, Config, TrainedModelSampler, sampler, series)
+        small_stage2_check(torch)
+        small_stage3_check(torch)
+        published_fe_check(torch, series)
+        small_fcn_check(torch)
+        small_resume_check(torch, work)
+    except BaseException:
+        generating[0].kill()
+        generating[0].wait()
+        raise
+    lap("untimed checks")
+    check_generated(*generating, work)
+    lap("generate wait")
     rel = 0.0
     with torch.inference_mode():
         for start in range(0, series.shape[0], B):
@@ -1270,22 +1637,16 @@ def main():
             check(rel <= 1e-4, f"reconstruct differs from the plain VQ path by {rel} of its scale")
     print(f"[reconstruct] tokens equal to the plain VQ version on the card; decoded series "
           f"within {rel:.3g} of their scale", flush=True)
-    small_model_check(torch, Config, TrainedModelSampler)
-    small_train_check(torch)
-    published_train_twin_check(torch, trained, data)
-    published_width_check(torch, Config, TrainedModelSampler, sampler, series)
     tok_l, tok_h, y = stage2_checks(torch, vq_kernel, frozen, stage2, data)
-    small_stage2_check(torch)
     xprime = stage3_checks(torch, vq_kernel, frozen, stage3, stage2, data)
-    small_stage3_check(torch)
-    published_fe_check(torch, series)
     fe_sampler_check(torch, Config, TrainedModelSampler)
-    small_fcn_check(torch)
+    lap("timed checks")
     profile_phase(torch, sampler, series, wall_ms)
     train_profile(torch, trained, data, step_ms)
     stage2_profile(torch, stage2, tok_l, tok_h, y, stage2_ms)
     stage3_profile(torch, stage3, data, xprime, stage3_ms)
     fcn_profile(torch, fcn, data, fcn_ms)
+    lap("profiles")
 
     main_numbers = kernels[MAIN_SHAPE]
     entry = {
@@ -1293,9 +1654,11 @@ def main():
         "route": "cuda",
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
-        "launches": serve_launches + train_launches + stage2_launches + stage3_launches,
+        "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
+                     + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
-                             "stage2": stage2_launches, "stage3": stage3_launches},
+                             "stage2": stage2_launches, "stage3": stage3_launches,
+                             "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],
@@ -1305,7 +1668,9 @@ def main():
         "device_ms": main_numbers["device_ms"],
         "shape_MKD": list(MAIN_SHAPE),
     }
-    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:])),
+          flush=True)
     print(json.dumps({"kernels": [entry]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,7 +32,7 @@ def test_importing_every_submodule_pulls_in_no_jax():
         f"for m in {list(_modules())!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {sorted(FORBIDDEN)!r}"
-        " or m == 'yaml')\n"
+        " or m in ('yaml', 'mlflow'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -41,6 +41,12 @@ def test_importing_every_submodule_pulls_in_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_the_scan_covers_the_clis_and_the_checkpoint_io():
+    assert {"tvqvae_tpu_torch.scripts.train", "tvqvae_tpu_torch.scripts.train_fcn",
+            "tvqvae_tpu_torch.scripts.generate", "tvqvae_tpu_torch.scripts.serve",
+            "tvqvae_tpu_torch.utils.checkpoint", "tvqvae_tpu_torch.utils.logging"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],

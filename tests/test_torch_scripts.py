@@ -1,0 +1,176 @@
+"""The port's CLIs end to end on the CPU, at small shapes.
+
+``main([...])`` of each script with ``--device cpu``, a synthetic ``.npz``
+(24 series, C=4, L=127, 3 classes) and a ``.json`` config in the reference
+schema at the small shapes of ``tests/test_torch_sampler.py``: ``train
+--stage all`` writes stage1/2/3 with their metas and ``--stage fcn`` the
+FCN; ``train_fcn`` writes its checkpoint; ``generate`` writes finite
+``.npz`` files in original units (raw and enhanced); the service ``serve``
+builds answers a request through ``make_server``. Every JAX option the port
+does not run is refused by name, the JAX defaults the port cannot run are
+not its defaults, and a JAX ``train`` command line parses.
+"""
+
+import functools
+import json
+import threading
+from http.client import HTTPConnection
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_sampler import CFG, C, L, N_CLASSES
+from tvqvae_tpu.scripts import train as jtrain
+from tvqvae_tpu_torch.data import make_synthetic_trajectories, save_npz
+from tvqvae_tpu_torch.scripts import generate, serve, train, train_fcn
+from tvqvae_tpu_torch.serving import make_server
+from tvqvae_tpu_torch.train import runner
+from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
+
+STEPS = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """These shapes run as fast on one thread, and then the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """``train --stage all`` once; -> (root, the common arguments)."""
+    root = tmp_path_factory.mktemp("cli")
+    save_npz(str(root / "flights.npz"),
+             *make_synthetic_trajectories(n=24, channels=C, length=L, n_classes=N_CLASSES, seed=4))
+    cfg = {**CFG, "dataset": {"batch_sizes": {"stage1": 4, "stage2": 4, "stage3": 4}},
+           "trainer_params": {"val_check_interval": {"stage1": 2, "stage2": 2, "stage3": 2}}}
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    common = ["--dataset_file", str(root / "flights.npz"), "--config", str(root / "cfg.json"),
+              "--model_save_dir", str(root / "models"), "--device", "cpu"]
+    train.main([*common, "--stage", "all", "--run_dir", str(root / "runs"),
+                "--max_steps", str(STEPS)])
+    return root, common
+
+
+def test_train_all_writes_every_stage(trained):
+    root, _ = trained
+    ckpt = root / "models" / "flights"
+    for stage in ("stage1", "stage2", "stage3"):
+        tree, meta = load_checkpoint(str(ckpt / stage))
+        assert int(tree["step"]) == STEPS and meta["completed_step"] == STEPS
+        assert (meta["input_length"], meta["in_channels"], meta["n_classes"]) == (L, C, N_CLASSES)
+        assert (ckpt / f"{stage}.train").exists()  # the snapshot at step 2
+        lines = (root / "runs" / f"flights_{stage}" / "metrics.jsonl").read_text().splitlines()
+        assert json.loads(lines[-1])["step"] == STEPS
+    assert set(load_checkpoint(str(ckpt / "stage3"))[0]) == {"params", "tau", "step"}
+
+
+def test_train_stage_fcn(trained, monkeypatch):
+    root, common = trained
+    # the JAX CLI trains the FCN for the runner's default 1000 steps; fewer here
+    monkeypatch.setattr(runner, "train_fcn", functools.partial(runner.train_fcn, max_epochs=3))
+    train.main([*common, "--stage", "fcn", "--run_dir", str(root / "runs")])
+    fcn, meta = runner.load_fcn_bundle(str(root / "models" / "flights" / "fcn"), device="cpu")
+    assert meta["n_classes"] == N_CLASSES and "completed_step" not in meta
+    x = np.random.default_rng(0).normal(size=(2, C, L)).astype(np.float32)
+    with torch.no_grad():
+        assert fcn(torch.from_numpy(x)).shape == (2, N_CLASSES)
+
+
+def test_train_fcn_cli(trained, tmp_path):
+    root, _ = trained
+    (tmp_path / "fcn.json").write_text(json.dumps(
+        {"dataset": {"batch_size": 8}, "exp_params": {"LR": 2e-3, "weight_decay": 0.0}}))
+    train_fcn.main(["--dataset_file", str(root / "flights.npz"), "--config",
+                    str(tmp_path / "fcn.json"), "--model_save_dir", str(tmp_path / "m"),
+                    "--run_dir", str(tmp_path / "runs"), "--max_steps", "2", "--device", "cpu"])
+    tree, meta = load_checkpoint(str(tmp_path / "m" / "flights" / "fcn"))
+    assert set(tree) == {"params", "batch_stats"} and meta["in_channels"] == C
+
+
+def test_generate_writes_original_units(trained, tmp_path):
+    root, common = trained
+    generate.main([*common, "--n_samples", "8", "--batch_size", "4",
+                   "--synthetic_save_dir", str(tmp_path / "raw"),
+                   "--synthetic_fidelity_dir", str(tmp_path / "fe")])
+    X_real = np.load(root / "flights.npz")["X"]
+    for path in (tmp_path / "raw" / "synthetic.npz", tmp_path / "fe" / "synthetic_fe.npz"):
+        z = np.load(path)
+        X, y = z["X"], z["y"]
+        assert X.shape[1:] == (C, L) and len(X) == len(y) and 6 <= len(X) <= 10
+        assert np.isfinite(X).all() and set(y) <= set(range(N_CLASSES))
+        assert (X[:, 2] >= 0).all() and (X[:, 3, 0] == 0).all()
+        # original units: the timedelta channel climbs to the real data's scale
+        assert X[:, 3].max() > 0.25 * X_real[:, 3].max()
+
+
+def test_serve_builds_a_service_that_answers(trained):
+    _, common = trained
+    parser = serve.build_argparser()
+    svc = serve.build_service(parser.parse_args([*common, "--use_fe", "--batch_size", "4"]), parser)
+    assert svc.info()["fidelity_enhancer"] and svc.info()["postprocess"]
+    svc.warmup()
+    srv = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = HTTPConnection("127.0.0.1", srv.server_address[1], timeout=60)
+        conn.request("POST", "/v1/generate", body=json.dumps({"n": 2, "class_index": 1}).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    assert resp.status == 200 and out["shape"] == [2, C, L] and out["y"] == [1, 1]
+    assert np.isfinite(np.asarray(out["X"])).all()
+
+
+UNPORTED = [
+    (train, ["--search_tau"]), (train, ["--bf16"]), (train, ["--bundle_steps", "10"]),
+    (train, ["--remat"]), (train, ["--fast_bn"]), (train, ["--bf16_mu"]), (train, ["--bf16_nu"]),
+    (train, ["--bf16_head"]), (train, ["--bf16_istft"]), (train, ["--rbg_rng"]),
+    (train, ["--no_precompute"]), (train, ["--host_data"]), (train, ["--tp", "2"]),
+    (generate, ["--bf16"]), (generate, ["--fast_bn"]),
+    (serve, ["--bf16"]), (serve, ["--fast_bn"]), (serve, ["--data_parallel"]),
+]
+
+
+@pytest.mark.parametrize("script, flag", UNPORTED,
+                         ids=[f"{s.__name__.rsplit('.', 1)[1]}{f[0]}" for s, f in UNPORTED])
+def test_unported_flag_is_refused(script, flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        script.main(["--dataset_file", "/nonexistent/flights.npz", *flag])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and flag[0] in err
+
+
+def test_jax_defaults_the_port_cannot_run_are_not_its_defaults():
+    j = jtrain.build_argparser().parse_args(["--dataset_file", "d.npz"])
+    p = train.build_argparser().parse_args(["--dataset_file", "d.npz"])
+    assert (j.bundle_steps, j.fast_bn, j.bf16_mu, j.bf16_head) == (10, True, True, True)
+    assert (p.bundle_steps, p.fast_bn, p.bf16_mu, p.bf16_nu, p.bf16_head, p.bf16_istft) == (
+        1, False, False, False, False, False)
+    assert p.device == "cuda" and p.tp == 1
+    for script in (generate, serve):
+        args = script.build_argparser().parse_args(["--dataset_file", "d.npz"])
+        assert args.fast_bn is False and args.bf16 is False and args.device == "cuda"
+
+
+def test_a_jax_train_command_line_parses():
+    ours = train.build_argparser()._option_string_actions
+    for action in jtrain.build_argparser()._actions:
+        for opt in action.option_strings:
+            assert opt in ours, opt
+    args = train.build_argparser().parse_args(
+        ["--dataset_file", "d.npz", "--stage", "2", "--no-fast_bn", "--no-bf16_mu",
+         "--no-bf16_head", "--bundle_steps", "1", "--no_val_metrics", "--use_pallas"])
+    assert args.stage == "2" and not args.fast_bn

@@ -10,10 +10,12 @@ With ``use_fidelity_enhancer`` the stage-3 U-Net refines the summed
 series ``x`` of every batch (not ``x_l`` or ``x_h``); ``enhance`` applies it
 to given series.
 
-The JAX sampler loads Orbax checkpoints; this one takes the trees they hold,
-in memory: stage 1 ``{"params", "batch_stats", "vq_l", "vq_h"}``, stage 2
+The constructor takes the trees a checkpoint holds, in the JAX package's
+layout: stage 1 ``{"params", "batch_stats", "vq_l", "vq_h"}``, stage 2
 ``{"params": {"l", "h"}, "h_stats"}`` and stage 3 ``{"params": {"Unet1D_0":
 ...}}`` (its ``tau``, which the SVQ τ-search reads, is not used here).
+``from_checkpoints`` reads them from the port's checkpoint files, as the JAX
+sampler reads its Orbax ones (``tools/export_jax_ckpt.py`` converts those);
 ``from_init`` builds seeded random weights instead.
 bfloat16 decoding and the ESS sampler are not ported yet and raise
 ``NotImplementedError``.
@@ -36,6 +38,7 @@ from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn
 from tvqvae_tpu_torch.train.stage3 import init_stage3
+from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
 from tvqvae_tpu_torch.utils.convert import fe_from_jax, prior_from_jax, stage1_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
@@ -80,6 +83,24 @@ class TrainedModelSampler:
             fe.load_state_dict(fe_from_jax(stage3["params"]))
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
                        use_fidelity_enhancer)
+
+    @classmethod
+    def from_checkpoints(cls, cfg: Config, stage1_ckpt: str, stage2_ckpt: str,
+                         stage3_ckpt: Optional[str] = None, use_fidelity_enhancer: bool = False,
+                         batch_size: int = 32, device="cuda") -> "TrainedModelSampler":
+        """A sampler from stage checkpoints (``utils/checkpoint.py``), as the
+        JAX sampler is built: the geometry (``input_length``,
+        ``in_channels``, ``n_classes``) from the stage-1 meta, everything
+        else from ``cfg``."""
+        if use_fidelity_enhancer and stage3_ckpt is None:
+            raise ValueError("use_fidelity_enhancer=True needs stage3_ckpt")
+        tree1, meta = load_checkpoint(stage1_ckpt)
+        tree2, _ = load_checkpoint(stage2_ckpt)
+        tree3 = load_checkpoint(stage3_ckpt)[0] if stage3_ckpt is not None else None
+        return cls(cfg, tree1, tree2, input_length=int(meta["input_length"]),
+                   in_channels=int(meta["in_channels"]), n_classes=int(meta["n_classes"]),
+                   stage3=tree3, use_fidelity_enhancer=use_fidelity_enhancer,
+                   batch_size=batch_size, device=device)
 
     @classmethod
     def from_init(cls, cfg: Config, input_length: int, in_channels: int,

@@ -88,9 +88,13 @@ class FrozenStage1:
     @staticmethod
     def from_state_dict(spec: Stage1Spec, sd: dict, device) -> "FrozenStage1":
         """From ``utils/convert.stage1_from_jax``'s layout: the model's keys
-        plus ``vq_l.*`` / ``vq_h.*`` codebook fields."""
-        model = Stage1Model(spec)
-        model.load_state_dict({k: v for k, v in sd.items() if not k.startswith(("vq_l.", "vq_h."))})
+        plus ``vq_l.*`` / ``vq_h.*`` codebook fields. The model is built on
+        the meta device and takes ``sd``'s tensors as they are: the default
+        initialisation it skips costs seconds at the published width."""
+        with torch.device("meta"):
+            model = Stage1Model(spec)
+        model.load_state_dict({k: v for k, v in sd.items() if not k.startswith(("vq_l.", "vq_h."))},
+                              assign=True)
         fields = ("embed", "embed_avg", "cluster_size", "initted")
         vq_l, vq_h = (CodebookState(*(sd[f"{band}.{f}"] for f in fields))
                       for band in ("vq_l", "vq_h"))

@@ -1,0 +1,88 @@
+"""Serve CLI: run a trained generator as an HTTP service.
+
+Port of ``tvqvae_tpu/scripts/serve.py``, with its flags:
+
+    python -m tvqvae_tpu_torch.scripts.serve --dataset_file data.npz \
+        --model_save_dir saved_models --port 8080 [--use_fe] [--warm_classes]
+
+It loads the stage checkpoints as the generate CLI does and fits nothing:
+the training scaler is derived again from the dataset file, so responses
+come back in original physical units. ``build_service`` makes the service
+without serving it. See ``tvqvae_tpu_torch/serving/`` for the endpoints.
+"""
+
+import argparse
+import os
+from pathlib import Path
+
+from tvqvae_tpu_torch.data import get_data
+from tvqvae_tpu_torch.generation import TrainedModelSampler
+from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
+from tvqvae_tpu_torch.serving import GenerationService, serve_forever
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description="Serve a trained generator (PyTorch port)")
+    p.add_argument("--config", type=str, default=None,
+                   help="config in the reference schema, YAML or .json; defaults built in")
+    p.add_argument("--dataset_file", type=str, required=True,
+                   help="training dataset (the scaler and features for original-unit responses)")
+    p.add_argument("--model_save_dir", type=str, default="saved_models")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--use_fe", action="store_true",
+                   help="serve fidelity-enhanced samples (needs stage3)")
+    p.add_argument("--max_request", type=int, default=4096)
+    p.add_argument("--warm_classes", action="store_true",
+                   help="also warm the per-class conditional paths")
+    p.add_argument("--no_warmup", action="store_true")
+    p.add_argument("--coalesce_ms", type=float, default=None,
+                   help="merge concurrent same-class seedless requests arriving within this "
+                        "window into one batch")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--data_parallel", action="store_true", help="not ported yet")
+    return p
+
+
+def build_service(args, parser=None) -> GenerationService:
+    """The service ``main`` serves, from parsed arguments, not yet warmed."""
+    refuse_unported(parser or build_argparser(), {
+        "--bf16": args.bf16, "--fast_bn": args.fast_bn, "--data_parallel": args.data_parallel})
+    cfg = load_config(args.config)
+    data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
+    ckpt = os.path.join(args.model_save_dir, Path(args.dataset_file).stem)
+    stage3 = os.path.join(ckpt, "stage3")
+    sampler = TrainedModelSampler.from_checkpoints(
+        cfg,
+        os.path.join(ckpt, "stage1"),
+        os.path.join(ckpt, "stage2"),
+        stage3_ckpt=stage3 if (args.use_fe and os.path.exists(stage3)) else None,
+        use_fidelity_enhancer=args.use_fe,
+        batch_size=args.batch_size,
+        device=args.device,
+    )
+    return GenerationService(
+        sampler,
+        scaler=data.scaler if cfg.dataset.data_scaling else None,
+        features=cfg.dataset.features,
+        max_request=args.max_request,
+        coalesce_ms=args.coalesce_ms,
+    )
+
+
+def main(argv=None):
+    p = build_argparser()
+    args = p.parse_args(argv)
+    service = build_service(args, p)
+    if not args.no_warmup:
+        print("[serve] warming the decode paths...", flush=True)
+        service.warmup(classes=args.warm_classes)
+    serve_forever(service, args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,128 @@
+"""Train CLI: chains stage 1 -> stage 2 -> stage 3, or trains the FCN.
+
+Port of ``tvqvae_tpu/scripts/train.py``, with its flags:
+
+    python -m tvqvae_tpu_torch.scripts.train --dataset_file data.npz \
+        [--config cfg.json] [--stage {all,1,2,3,fcn}] [--model_save_dir DIR] \
+        [--max_steps N] [--device cuda]
+
+Checkpoints land in ``<model_save_dir>/<dataset stem>/stage{1,2,3}`` and
+``fcn`` (``utils/checkpoint.py``: an ``.npz`` at exactly that path and its
+``.meta.json``); stages 2 and 3 read stage 1 back from disk. Metrics go to
+a JSONL run directory (and MLflow when configured). A stage whose checkpoint
+records its budget is skipped, and an interrupted one resumes from its
+snapshot. ``--config`` takes the reference YAML schema, or the same schema as
+``.json`` where PyYAML is missing.
+
+The JAX flags all parse, defaulting to what the port runs (float32, one
+optimizer step per dispatch, the precomputed token and x' sets, on the
+card); asking for an option the port does not run is an error naming it.
+The validation-time sampling metrics are not ported, so every run is a
+``--no_val_metrics`` run.
+"""
+
+import argparse
+import os
+from pathlib import Path
+
+from tvqvae_tpu_torch.data import get_data
+from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
+from tvqvae_tpu_torch.train import runner
+from tvqvae_tpu_torch.utils.logging import RunLogger
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description="Train the TimeVQVAE stages (PyTorch port)")
+    p.add_argument("--config", type=str, default=None,
+                   help="config in the reference schema, YAML or .json; defaults built in")
+    p.add_argument("--dataset_file", type=str, required=True,
+                   help=".npz (X, y), or a pickled traffic.Traffic where traffic is installed")
+    p.add_argument("--stage", type=str, default="all", choices=["all", "1", "2", "3", "fcn"])
+    p.add_argument("--model_save_dir", type=str, default="saved_models")
+    p.add_argument("--run_dir", type=str, default="runs")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="override the per-stage step budget (stages 1-3)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no_val_metrics", action="store_true",
+                   help="skip validation-time sampling metrics in stages 2/3 (the port "
+                        "has none yet, so this is always the case)")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="accepted for the JAX command line: on the card the port always "
+                        "runs its CUDA VQ kernel")
+    # the JAX package's options the port does not run: refused when asked for
+    p.add_argument("--search_tau", action="store_true", help="not ported yet")
+    p.add_argument("--bf16", action="store_true", help="not ported yet")
+    p.add_argument("--bundle_steps", type=int, default=1,
+                   help="optimizer steps per dispatch; > 1 is not ported yet")
+    p.add_argument("--remat", action="store_true", help="not ported yet")
+    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--bf16_mu", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--bf16_nu", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--bf16_head", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--bf16_istft", action=argparse.BooleanOptionalAction, default=False,
+                   help="not ported yet")
+    p.add_argument("--rbg_rng", action="store_true", help="not ported yet")
+    p.add_argument("--no_precompute", action="store_true", help="not ported yet")
+    p.add_argument("--host_data", action="store_true", help="not ported yet")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel width; > 1 is not ported yet")
+    return p
+
+
+def main(argv=None):
+    p = build_argparser()
+    args = p.parse_args(argv)
+    refuse_unported(p, {
+        "--search_tau": args.search_tau, "--bf16": args.bf16,
+        "--bundle_steps > 1": args.bundle_steps > 1, "--remat": args.remat,
+        "--fast_bn": args.fast_bn, "--bf16_mu": args.bf16_mu, "--bf16_nu": args.bf16_nu,
+        "--bf16_head": args.bf16_head, "--bf16_istft": args.bf16_istft,
+        "--rbg_rng": args.rbg_rng, "--no_precompute": args.no_precompute,
+        "--host_data": args.host_data, "--tp > 1": args.tp > 1,
+    })
+    cfg = load_config(args.config)
+    data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
+    stem = Path(args.dataset_file).stem
+    ckpt_dir = os.path.join(args.model_save_dir, stem)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    paths = {s: os.path.join(ckpt_dir, f"stage{s}") for s in ("1", "2", "3")}
+    paths["fcn"] = os.path.join(ckpt_dir, "fcn")
+
+    def logger(stage):
+        return RunLogger(
+            os.path.join(args.run_dir, f"{stem}_{stage}"),
+            experiment_name=cfg.logger.experiment_name,
+            run_name=f"{stem}_{stage}",
+            mlflow_uri=cfg.logger.mlflow_uri,
+        )
+
+    stages = ["1", "2", "3"] if args.stage == "all" else [args.stage]
+    if not args.no_val_metrics and any(s in ("2", "3") for s in stages):
+        print("[train] validation-time sampling metrics are not ported yet; "
+              "training as with --no_val_metrics")
+    common = dict(max_steps=args.max_steps, seed=args.seed, device=args.device)
+    for stage in stages:
+        log = logger(f"stage{stage}" if stage != "fcn" else "fcn")
+        try:
+            if stage == "1":
+                runner.train_stage1(cfg, data, logger=log, save_path=paths["1"], **common)
+            elif stage == "2":
+                frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
+                runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"], **common)
+            elif stage == "3":
+                frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
+                runner.train_stage3(cfg, data, frozen, logger=log, save_path=paths["3"], **common)
+            elif stage == "fcn":
+                runner.train_fcn(cfg, data, logger=log, seed=args.seed, device=args.device,
+                                 save_path=paths["fcn"])
+        finally:
+            log.close()
+    print(f"checkpoints in {ckpt_dir}")
+
+
+if __name__ == "__main__":
+    main()

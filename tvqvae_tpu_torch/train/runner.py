@@ -1,30 +1,40 @@
-"""Training orchestration: the three stages and the FCN feature net.
+"""Training orchestration: the three stages and the FCN feature net, their
+checkpoints, mid-run snapshots and resume.
 
 Port of ``tvqvae_tpu/train/runner.py``: ``_adamw``, ``_loop``,
-``codebook_to_dict``/``codebook_from_dict``, ``train_stage1``,
-``train_stage2``, ``train_stage3`` and ``train_fcn``. The loops are the JAX
-package's device-data path: the train split (in stage 2 its token grids, in
-stage 3 its x' set beside it) is uploaded once, each step gathers its batch
-on the device by index, and stage-1 validation runs over the whole test
-split in fixed, wrap-padded batches with the padding masked out of the sums.
-Nothing reads a value back from the device between steps; the loop waits for
-the device only where it prints or validates. Batches follow
-``make_batches(shuffle=True, seed=seed, repeat=True)``; the JAX device path
-permutes on the device with threefry instead, a deviation its own runner
-calls non-semantic.
+``codebook_to_dict``/``codebook_from_dict``, ``config_meta``,
+``_stage_completed``, ``load_stage1_bundle``, ``load_fcn_bundle``,
+``train_stage1``, ``train_stage2``, ``train_stage3`` and ``train_fcn``. The
+loops are the JAX package's device-data path: the train split (in stage 2
+its token grids, in stage 3 its x' set beside it) is uploaded once, each
+step gathers its batch on the device by index, and stage-1 validation runs
+over the whole test split in fixed, wrap-padded batches with the padding
+masked out of the sums. Nothing reads a value back from the device between
+steps; the loop waits for the device only where it prints, validates or
+snapshots. Batches follow ``make_batches(shuffle=True, seed=seed,
+repeat=True)``; the JAX device path permutes on the device with threefry
+instead, a deviation its own runner calls non-semantic.
 
-Stages 2 and 3 take their frozen stage 1 in memory:
-``FrozenStage1.from_stage1_state`` of a ``train_stage1`` result (JAX's
-``load_stage1_bundle`` reads it from a checkpoint), or
+Stages 2 and 3 take their frozen stage 1 in memory: ``load_stage1_bundle``
+of a stage-1 checkpoint (as the JAX runner reads it),
+``FrozenStage1.from_stage1_state`` of a ``train_stage1`` result, or
 ``FrozenStage1.from_state_dict`` of a JAX tree.
 
-Not ported yet (ROADMAP item 11): the checkpoint writer (``save_path``),
-mid-run snapshots and resume, and the ``scripts/train.py`` and
-``scripts/train_fcn.py`` CLIs. The runners return their final state (the
-FCN runner its trained module) instead.
+With ``save_path`` a stage writes its checkpoint at the end
+(``utils/checkpoint.py``: the JAX package's tree layout in an ``.npz`` at
+exactly ``save_path``, its meta at ``save_path + ".meta.json"`` with the
+``completed_step``), skips itself when that meta already records the
+budget, snapshots its full train state to ``save_path + ".train"`` at each
+validation boundary but the last, and resumes from that snapshot. Snapshots
+are synchronous: the JAX package's ``AsyncSnapshotter`` hides a slow link to
+its device, which the card's host does not have. The runners also return
+their final state (the FCN runner its trained module).
 """
 
+import dataclasses
 import functools
+import json
+import os
 import time
 from typing import Callable, Optional
 
@@ -61,20 +71,144 @@ from tvqvae_tpu_torch.train.stage3 import (
     make_stage3_train_step_pre,
     precompute_xprime_dataset,
 )
+from tvqvae_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_train_state,
+    save_checkpoint,
+    save_train_state,
+)
+from tvqvae_tpu_torch.utils.convert import (
+    codebook_to_dict,
+    fcn_from_jax,
+    fcn_to_jax,
+    fe_to_jax,
+    prior_to_jax,
+    stage1_from_jax,
+    stage1_to_jax,
+)
 from tvqvae_tpu_torch.utils.device import resolve_device
 from tvqvae_tpu_torch.utils.profiling import StepTimer
 from tvqvae_tpu_torch.utils.schedule import cosine_decay_schedule, warmup_cosine_schedule
-
-
-def codebook_to_dict(cb: CodebookState) -> dict:
-    return {f: getattr(cb, f).detach().cpu().numpy()
-            for f in ("embed", "embed_avg", "cluster_size", "initted")}
 
 
 def codebook_from_dict(d: dict) -> CodebookState:
     """A codebook on the CPU (``.to(device)`` moves it)."""
     return CodebookState(*(torch.as_tensor(np.asarray(d[f]))
                            for f in ("embed", "embed_avg", "cluster_size", "initted")))
+
+
+# --------------------------------------------------------------------------
+# checkpoints, snapshots and resume
+
+
+def config_meta(cfg: Config, data: DatasetSplits,
+                completed_step: Optional[int] = None) -> dict:
+    meta = {
+        "config": dataclasses.asdict(cfg),
+        "input_length": int(data.input_length),
+        "in_channels": int(data.in_channels),
+        "n_classes": int(data.n_classes),
+    }
+    if completed_step is not None:
+        meta["completed_step"] = int(completed_step)
+    return meta
+
+
+def _stage_completed(save_path: str, max_steps: int, resume: bool,
+                     name: str) -> bool:
+    """Stage idempotency via the checkpoint meta: a finished stage records
+    its completed step, so calling the stage again returns at once instead
+    of retraining from the last mid-run snapshot."""
+    if not resume:
+        return False
+    try:
+        with open(os.path.abspath(save_path) + ".meta.json") as f:
+            done = int(json.load(f).get("completed_step", -1))
+    except (OSError, ValueError, TypeError):
+        return False
+    if done >= max_steps:
+        print(f"[{name}] checkpoint already records completed_step {done} "
+              f">= max_steps {max_steps}; skipping (pass resume=False or "
+              f"delete the checkpoint to retrain)")
+        return True
+    return False
+
+
+def load_stage1_bundle(cfg: Config, stage1_ckpt: str, device="cuda"):
+    """A stage-1 checkpoint -> (FrozenStage1 on ``device``, Stage1Spec, meta);
+    the geometry comes from the meta, the rest of the spec from ``cfg``."""
+    dev = resolve_device(device)
+    tree, meta = load_checkpoint(stage1_ckpt)
+    spec = Stage1Spec.from_config(cfg, int(meta["input_length"]), int(meta["in_channels"]))
+    frozen = FrozenStage1.from_state_dict(spec, stage1_from_jax(tree), dev)
+    frozen.model.requires_grad_(False)
+    return frozen, spec, meta
+
+
+def load_fcn_bundle(fcn_ckpt: str, device="cuda"):
+    """An FCN checkpoint -> (the FCN in eval mode on ``device``, meta)."""
+    tree, meta = load_checkpoint(fcn_ckpt)
+    fcn = FCN(int(meta["in_channels"]), int(meta["n_classes"]))
+    fcn.load_state_dict(fcn_from_jax(tree))
+    return fcn.to(resolve_device(device)).eval(), meta
+
+
+def train_state_payload(state, generator: torch.Generator) -> dict:
+    """What resumes ``state`` (a stage's train state) exactly: the state dict
+    of each module in it, its codebooks, the optimizer's and the schedule's
+    states, the step, and the state of the generator the steps draw from."""
+    payload = {"step": int(state.step), "generator": generator.get_state(),
+               "optimizer": state.optimizer.state_dict(),
+               "scheduler": state.scheduler.state_dict()}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.nn.Module):
+            payload[f.name] = v.state_dict()
+        elif isinstance(v, CodebookState):
+            payload[f.name] = {c.name: getattr(v, c.name) for c in dataclasses.fields(v)}
+    return payload
+
+
+def restore_train_state(state, generator: torch.Generator, payload: dict) -> int:
+    """Load ``train_state_payload``'s payload into a freshly built ``state``
+    of the same shapes (the schedule rebuilt by the caller, then its counter
+    loaded) and into ``generator``. -> the step it resumes after."""
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.nn.Module):
+            v.load_state_dict(payload[f.name])
+        elif isinstance(v, CodebookState):
+            setattr(state, f.name, CodebookState(**payload[f.name]).to(v.embed.device))
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.scheduler.load_state_dict(payload["scheduler"])
+    generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    return state.step
+
+
+def _resume(save_path: Optional[str], resume: bool, state, generator, name: str) -> int:
+    """The step a run starts after: that of ``save_path + ".train"``, loaded
+    into ``state`` and ``generator``, or 0."""
+    if not (save_path and resume and os.path.exists(save_path + ".train")):
+        return 0
+    step = restore_train_state(state, generator, load_train_state(save_path + ".train"))
+    print(f"[{name}] resuming from step {step}")
+    return step
+
+
+def _snapshotter(save_path: Optional[str], state, generator):
+    if not save_path:
+        return None
+    return lambda step: save_train_state(save_path + ".train",
+                                         train_state_payload(state, generator))
+
+
+def _save_stage(name: str, save_path: str, tree: dict, cfg: Config, data: DatasetSplits,
+                completed_step: Optional[int]) -> None:
+    t0 = time.time()
+    save_checkpoint(save_path, tree, meta=config_meta(cfg, data, completed_step))
+    print(f"[{name}] checkpoint {save_path}: {os.path.getsize(save_path) / 1e6:.1f} MB "
+          f"in {time.time() - t0:.1f}s")
 
 
 def _adamw(cfg: Config, max_steps: int) -> Callable:
@@ -86,16 +220,18 @@ def _adamw(cfg: Config, max_steps: int) -> Callable:
 
 
 def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval: int,
-          log_interval: int = 100):
-    """Call ``train_once(step)`` for steps 1..``max_steps``; log every
-    ``log_interval`` steps and validate and print every ``val_interval`` and
-    at the end. ``logger.log_metrics(metrics, step)`` gets the train metrics
-    as 0-dim device tensors (reading one waits for the device) and the
-    validation metrics as floats."""
+          log_interval: int = 100, start_step: int = 0, snapshot=None):
+    """Call ``train_once(step)`` for steps ``start_step`` + 1..``max_steps``;
+    log every ``log_interval`` steps and validate and print every
+    ``val_interval`` and at the end, and there call ``snapshot(step)`` but at
+    the end (the stage checkpoint supersedes it).
+    ``logger.log_metrics(metrics, step)`` gets the train metrics as 0-dim
+    device tensors (reading one waits for the device) and the validation
+    metrics as floats."""
     timer = StepTimer()
     t0 = time.time()
-    last = {"step": 0, "t": t0}  # segment-rate anchor
-    for step in range(1, max_steps + 1):
+    last = {"step": start_step, "t": t0}  # segment-rate anchor
+    for step in range(start_step + 1, max_steps + 1):
         metrics = train_once(step)
         timer.tick()
         if logger and (step % log_interval == 0 or step == max_steps):
@@ -104,7 +240,7 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
         if step % max(val_interval, 1) == 0 or step == max_steps:
             val = eval_once(step) if eval_once else {}
             now = time.time()
-            rate = step / (now - t0)
+            rate = (step - start_step) / (now - t0)
             # the rate since the last print shows a slowdown a cumulative one hides
             seg = (step - last["step"]) / max(now - last["t"], 1e-9)
             last["step"], last["t"] = step, now
@@ -113,6 +249,8 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
                   f"({rate:.1f} it/s cum, {seg:.1f} seg) {line}")
             if logger and val:
                 logger.log_metrics({f"val/{k}": v for k, v in val.items()}, step)
+            if snapshot is not None and step < max_steps:
+                snapshot(step)
 
 
 def _unported(**flags) -> None:
@@ -147,9 +285,15 @@ def train_stage1(
     bf16_istft: bool = False,
     tp: int = 1,
     rng_impl: Optional[str] = None,
-) -> Stage1TrainState:
+    save_path: Optional[str] = None,
+    resume: bool = True,
+) -> Optional[Stage1TrainState]:
     """Train stage 1 from seeded random weights for ``max_steps`` (default:
-    the config's) and return the final state. Batches of
+    the config's) and return the final state, or None when ``save_path``'s
+    meta already records that many steps (with ``resume``). With
+    ``save_path`` it resumes from, and snapshots to, ``save_path +
+    ".train"`` and writes ``{"params", "batch_stats", "vq_l", "vq_h",
+    "step"}`` there at the end. Batches of
     ``dataset.batch_sizes["stage1"]`` follow ``make_batches(shuffle=True,
     seed=seed, repeat=True)``; dropout masks come from a generator seeded
     ``seed + 1``. The step bundles (``bundle_steps`` > 1), reduced-precision,
@@ -161,6 +305,8 @@ def train_stage1(
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage1"]
+    if save_path and _stage_completed(save_path, max_steps, resume, "stage1"):
+        return None
     order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_init = time.time()
@@ -174,6 +320,7 @@ def train_stage1(
     print(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
           f"{time.time() - t_up:.1f}s")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    start_step = _resume(save_path, resume, state, gen, "stage1")
     step_fn = make_stage1_train_step()
 
     def train_once(step):
@@ -182,8 +329,13 @@ def train_stage1(
     eval_once = _make_eval(state, data.X_test, batch_size, dev) if len(data.X_test) else None
     t_loop = time.time()
     _loop("stage1", max_steps, train_once, eval_once, logger,
-          cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval)
+          cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval,
+          start_step, _snapshotter(save_path, state, gen))
     print(f"[stage1] loop {time.time() - t_loop:.1f}s")
+    if save_path:
+        tree = stage1_to_jax(state.model, state.vq_l, state.vq_h)
+        _save_stage("stage1", save_path, {**tree, "step": np.asarray(state.step, np.int32)},
+                    cfg, data, state.step)
     return state
 
 
@@ -202,10 +354,15 @@ def train_stage2(
     val_n_samples: Optional[int] = None,
     device="cuda",
     log_interval: int = 100,
-) -> Stage2TrainState:
+    save_path: Optional[str] = None,
+    resume: bool = True,
+) -> Optional[Stage2TrainState]:
     """Train both MaskGIT priors from seeded random weights over ``frozen``
     (on ``device``) for ``max_steps`` (default: the config's) and return the
-    final state.
+    final state, or None when ``save_path``'s meta already records that many
+    steps. ``save_path`` and ``resume`` work as in ``train_stage1``; the
+    checkpoint is ``{"params": {"l", "h"}, "h_stats", "step"}``. A resumed
+    run encodes the token dataset again (the sweep is deterministic).
 
     One sweep encodes the train split to token grids through the VQ
     kernel, and the steps run on those. The JAX runner's on-the-fly path
@@ -225,12 +382,15 @@ def train_stage2(
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
     batch_size = cfg.dataset.batch_sizes.get("stage2", 16)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage2"]
+    if save_path and _stage_completed(save_path, max_steps, resume, "stage2"):
+        return None
     order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
                            torch.Generator().manual_seed(seed), dev)
     state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    start_step = _resume(save_path, resume, state, gen, "stage2")
     y_dev = torch.from_numpy(data.y_train).to(dev)
     t0 = time.time()
     tok_l, tok_h = precompute_token_dataset(frozen, torch.from_numpy(data.X_train).to(dev),
@@ -243,7 +403,13 @@ def train_stage2(
         return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
 
     _loop("stage2", max_steps, train_once, None, logger,
-          cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval)
+          cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
+          start_step, _snapshotter(save_path, state, gen))
+    if save_path:
+        params, h_stats = prior_to_jax(state.t_l, state.t_h)
+        _save_stage("stage2", save_path, {"params": params, "h_stats": h_stats,
+                                          "step": np.asarray(state.step, np.int32)},
+                    cfg, data, state.step)
     return state
 
 
@@ -266,10 +432,15 @@ def train_stage3(
     tp: int = 1,
     device="cuda",
     log_interval: int = 100,
-) -> Stage3TrainState:
+    save_path: Optional[str] = None,
+    resume: bool = True,
+) -> Optional[Stage3TrainState]:
     """Train the fidelity enhancer from seeded random weights over ``frozen``
     (on ``device``) for ``max_steps`` (default: the config's) and return the
-    final state.
+    final state, or None when ``save_path``'s meta already records that many
+    steps. ``save_path`` and ``resume`` work as in ``train_stage1``; the
+    checkpoint is ``{"params": {"Unet1D_0": ...}, "tau", "step"}`` with the
+    ``tau`` the run trained at.
 
     At tau = 0 one sweep computes x' for the train split through the VQ
     kernel (batches of ``max(batch_size, 32)``) and the steps gather (x, x')
@@ -291,6 +462,8 @@ def train_stage3(
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
     batch_size = cfg.dataset.batch_sizes.get("stage3", 16)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage3"]
+    if save_path and _stage_completed(save_path, max_steps, resume, "stage3"):
+        return None
     order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
     percept = cfg.fidelity_enhancer.percept_loss_weight
     precompute = tau == 0.0
@@ -301,6 +474,7 @@ def train_stage3(
                      torch.Generator().manual_seed(seed), dev)
     state = create_stage3_state(fe, _adamw(cfg, max_steps))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    start_step = _resume(save_path, resume, state, gen, "stage3")
     X_dev = torch.from_numpy(data.X_train).to(dev)
     if precompute:
         t0 = time.time()
@@ -316,7 +490,13 @@ def train_stage3(
             return step_fn(state, X_dev[order[step - 1]], gen)[1]
 
     _loop("stage3", max_steps, train_once, None, logger,
-          cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval)
+          cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,
+          start_step, _snapshotter(save_path, state, gen))
+    if save_path:
+        _save_stage("stage3", save_path, {"params": fe_to_jax(state.fe),
+                                          "tau": np.asarray(tau, np.float32),
+                                          "step": np.asarray(state.step, np.int32)},
+                    cfg, data, state.step)
     return state
 
 
@@ -345,6 +525,7 @@ def train_fcn(
     seed: int = 0,
     device="cuda",
     log_interval: int = 50,
+    save_path: Optional[str] = None,
 ) -> FCN:
     """Supervised FCN classifier training from seeded random weights ->
     the trained ``FCN`` in eval mode (its state dict: the parameters and the
@@ -352,8 +533,9 @@ def train_fcn(
     JAX runner does (the reference caps Lightning at ``max_steps=max_epochs``),
     at batches of ``min(batch_size, N)``. Its own optimiser, not the stages':
     AdamW with weight decay ``weight_decay`` over ``cosine_decay_schedule(lr,
-    max_epochs)``. ``cfg`` is unused, as in JAX (which writes it into the
-    checkpoint's metadata; no checkpoint yet, ROADMAP item 11).
+    max_epochs)``. ``cfg`` goes only into the checkpoint's meta: with
+    ``save_path`` the run ends by writing ``{"params", "batch_stats"}``
+    there (``load_fcn_bundle`` reads it); it takes no snapshots, as in JAX.
     ``logger.log_metrics`` gets ``train/loss`` and ``train/acc`` as 0-dim
     device tensors every ``log_interval`` steps."""
     dev = resolve_device(device)
@@ -373,6 +555,8 @@ def train_fcn(
             logger.log_metrics({"train/loss": ce, "train/acc": acc}, step)
         if step % 200 == 0 or step == max_steps:
             print(f"[fcn] step {step}/{max_steps} ce={float(ce):.4f} acc={float(acc):.3f}")
+    if save_path:
+        _save_stage("fcn", save_path, fcn_to_jax(fcn), cfg, data, None)
     return fcn.eval()
 
 

@@ -1,4 +1,5 @@
-"""Weights bridge: the JAX package's parameter trees -> the port's state dicts.
+"""Weights bridge between the JAX package's parameter trees and the port's
+state dicts, both ways.
 
 The port's submodules carry the flax tree's names, so the conversion is a
 per-leaf rename and transpose, decided by the leaf's name and rank:
@@ -14,13 +15,19 @@ per-leaf rename and transpose, decided by the leaf's name and rank:
 
 Inputs are nested mappings of numpy (or numpy-convertible) arrays, as the
 JAX package's checkpoints and ``load_stage1_bundle`` give them.
+
+``stage1_to_jax``, ``prior_to_jax``, ``fe_to_jax`` and ``fcn_to_jax`` are the
+exact inverses: they read each state-dict entry's module type to name and
+transpose it back, drop ``num_batches_tracked`` and keep ``initted`` bool,
+so the port writes its checkpoints in the JAX package's layout.
 """
 
 from collections import OrderedDict
-from typing import Mapping, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 _RENAME = {"bias": "bias", "scale": "weight", "embedding": "weight", "a": "a",
            "logit_bias": "logit_bias", "g": "g"}
@@ -106,3 +113,88 @@ def fe_from_jax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
 def fcn_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """FCN ``{"params", "batch_stats"}`` -> state dict of the port's ``FCN``."""
     return params_to_state_dict(variables["params"], variables.get("batch_stats"))
+
+
+# --------------------------------------------------------------------------
+# the port's modules -> the JAX package's trees
+
+_NORMS = (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm, nn.RMSNorm)
+
+
+def _flax_param(module: nn.Module, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The inverse of ``_param`` for one parameter of ``module``."""
+    if name == "weight":
+        if isinstance(module, nn.ConvTranspose2d):
+            return "kernel", arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        if isinstance(module, nn.Conv2d):
+            return "kernel", arr.transpose(2, 3, 1, 0)
+        if isinstance(module, nn.Conv1d):
+            return "kernel", arr.transpose(2, 1, 0)
+        if isinstance(module, nn.Linear):
+            return "kernel", arr.T
+        if isinstance(module, nn.Embedding):
+            return "embedding", arr
+        if isinstance(module, _NORMS):
+            return "scale", arr
+    elif name in _RENAME.values():
+        return name, arr
+    raise ValueError(f"unknown parameter {name} of {type(module).__name__}")
+
+
+def _insert(tree: dict, path, arr: np.ndarray) -> None:
+    *mods, leaf = path
+    for m in mods:
+        tree = tree.setdefault(m, {})
+    tree[leaf] = np.ascontiguousarray(arr)
+
+
+def module_to_jax(module: nn.Module) -> Tuple[Dict, Dict]:
+    """One module's state dict -> (params, batch_stats), flax trees of numpy
+    arrays: the inverse of ``params_to_state_dict``."""
+    params, stats = {}, {}
+    for key, t in module.state_dict().items():
+        *mods, name = key.split(".")
+        owner = module.get_submodule(".".join(mods))
+        arr = t.detach().to("cpu", copy=True).numpy()  # never a view of the live module
+        if name == "num_batches_tracked":
+            continue
+        if name in ("running_mean", "running_var"):
+            _insert(stats, [*mods, name[len("running_"):]], arr)
+        else:
+            leaf, arr = _flax_param(owner, name, arr)
+            _insert(params, [*mods, leaf], arr)
+    return params, stats
+
+
+def codebook_to_dict(cb) -> Dict[str, np.ndarray]:
+    """A ``CodebookState`` -> {embed, embed_avg, cluster_size, initted},
+    host copies."""
+    return {f: getattr(cb, f).detach().to("cpu", copy=True).numpy() for f in _CODEBOOK_FIELDS}
+
+
+def stage1_to_jax(model: nn.Module, vq_l, vq_h) -> Dict:
+    """The port's ``Stage1Model`` and codebooks -> {"params", "batch_stats",
+    "vq_l", "vq_h"}: the inverse of ``stage1_from_jax``."""
+    params, stats = module_to_jax(model)
+    return {"params": params, "batch_stats": stats,
+            "vq_l": codebook_to_dict(vq_l), "vq_h": codebook_to_dict(vq_h)}
+
+
+def prior_to_jax(t_l: nn.Module, t_h: nn.Module):
+    """Both priors -> (params {"l", "h"}, the HF prior's batch stats): the
+    inverse of ``prior_from_jax`` (square ``project_in``/``project_out``
+    layers included where a prior has them)."""
+    p_l, _ = module_to_jax(t_l)
+    p_h, h_stats = module_to_jax(t_h)
+    return {"l": p_l, "h": p_h}, h_stats
+
+
+def fe_to_jax(fe: nn.Module) -> Dict:
+    """The port's ``FidelityEnhancer`` -> params ``{"Unet1D_0": ...}``."""
+    return module_to_jax(fe)[0]
+
+
+def fcn_to_jax(fcn: nn.Module) -> Dict:
+    """The port's ``FCN`` -> {"params", "batch_stats"}."""
+    params, stats = module_to_jax(fcn)
+    return {"params": params, "batch_stats": stats}
