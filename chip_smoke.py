@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 It needs no JAX and no network. Phases, each fatal on failure:
 
-  1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name.
+  1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name, the
+     scipy version and whether scikit-learn is there (for the record: the
+     port never imports it).
   2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc,
      while the published-width sampler of phase 4 is built.
   3. kernels: each kernel against its plain PyTorch version on the card at
@@ -31,18 +33,33 @@ It needs no JAX and no network. Phases, each fatal on failure:
      32x1Lx1H, B=16, dropout 0.3, p_unconditional 0.2) for 120 steps on the
      precomputed-token path: the sweep's VQ launches (2 per 64-series
      batch), a finite loss that falls, steady ms per step past a 20-step
-     warmup (CUDA events), peak memory.
+     warmup (CUDA events), peak memory; and one validation at the end
+     scoring 32 series sampled from the priors with the ROCKET ``Metrics``
+     (1000 kernels, built on the card after phase 7): the JAX runner's
+     ``running_metrics`` names, finite, its seconds apart from the steps.
   9. stage 3: the counters set to 0 again, ``train_stage3`` over the same
      stage 1 read from disk, writing ``stage3``, at the published width (``Config()``: enhancer dim 8,
      dim_mults (1, 2, 4, 8), 4 groups, dropout 0.5, B=16) for 60 steps on
      the precomputed-x' path: the x' sweep's VQ launches (2 per 32-series
      batch) and none in the steps, a finite loss that falls, steady ms per
      step past a 20-step warmup (CUDA events), the memory it adds, the
-     enhancer's parameter count.
+     enhancer's parameter count; one validation as in phase 8, over 32
+     series sampled from the written stage 2, raw and enhanced.
  10. fcn: ``train_fcn`` (128/256/128 channels, kernels 8/5/3) for 45 steps
      at batch min(256, 288), writing ``fcn``: a finite loss that falls, the
      128-wide features, train accuracy, steady ms per step, peak memory.
- 11. ckpt: each checkpoint's bytes, write and read seconds; one
+ 11. eval: ROCKET features/s and the card against the CPU on 8 series;
+     ``Metrics("supervised_fcn")`` over ``fcn`` read from disk and
+     MiniRocket (a 64-series fit, above 2^24 values per quantile sort) against
+     the CPU; then, the counters set to 0 again, the evaluate entry point
+     (``scripts/evaluate.py::evaluate`` over the written stages and ``fcn``:
+     64 series sampled ``from_checkpoints`` and enhanced, FID by svd on the
+     2000-wide ROCKET features, FID_rec of the test split with 2 VQ launches
+     per batch, IS, MDD/ACD/SD/KD, the same with the enhancer; the JAX
+     package's result names, finite; its seconds by call) and the tau search
+     over two taus; after the count, Schur against svd on the 128-wide FCN
+     features of the train split and its round trip (n > D).
+ 12. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
      published width against the in-memory sampler of the trained states
@@ -50,9 +67,10 @@ It needs no JAX and no network. Phases, each fatal on failure:
      their scale; ``reconstruct`` of 64 series: 4 VQ launches), and one
      HTTP request to the service the serve CLI builds from disk; then the
      generate CLI starts in a subprocess (64 series, raw and enhanced:
-     finite, in original units) and runs beside the untimed checks below,
-     which wait for it before the timed ones.
- 12. checks after the counted runs: the reconstruct tokens against the
+     finite, in original units), then the evaluate CLI (the JAX package's
+     result names, finite); both run beside the untimed checks below, which
+     wait for them before the timed ones.
+ 13. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
      three training steps of each stage; one more published-width training
@@ -68,9 +86,9 @@ It needs no JAX and no network. Phases, each fatal on failure:
      witness; the sampler with a seeded enhancer, and the trained enhancer
      over a batch sampled from the trained priors; a small stage 1 resumed
      from its snapshot against the same run straight through.
- 13. profile: device time by kernel and the device's idle share over one
-     sample batch, one reconstruct batch, one training step of each stage
-     and one FCN step (torch.profiler).
+ 14. profile: device time by kernel and the device's idle share over one
+     sample batch, one reconstruct batch, one training step of each stage,
+     one FCN step and one 32-series ROCKET featurisation (torch.profiler).
 
 The last lines are a JSON list of the kernels with their numbers, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``. Any failure
@@ -78,6 +96,7 @@ raises and exits non-zero before that line. Without a card, or copied out of
 a checkout (the package does not import), it exits 1 at once.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -107,6 +126,11 @@ TRAIN_STEPS, TRAIN_SERIES = 30, 320
 STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 120, 20, 64
 STAGE3_STEPS, STAGE3_WARMUP, XPRIME_BATCH = 60, 20, 32
 FCN_STEPS, FCN_WARMUP = 45, 10
+ROCKET_KERNELS, EVAL_SERIES, EVAL_TAUS = 1000, 64, (0.5, 1.0)
+# the JAX evaluate CLI's result names (tvqvae_tpu/scripts/evaluate.py), images aside
+JAX_EVAL_KEYS = ("FID", "FID_rec", "MDD", "ACD", "SD", "KD", "IS_mean", "IS_std", "FID with FE",
+                 "MDD with FE", "ACD with FE", "SD with FE", "KD with FE", "IS_mean with FE",
+                 "IS_std with FE", "FID_svq")
 # the schedule lengths of the small card-vs-CPU checks, apart from the depths
 # above: their float64-witnessed bounds were set at these learning rates
 SMALL_STEPS, SMALL_FCN_STEPS = 40, 60
@@ -294,20 +318,25 @@ class Work:
         self.stage["fcn"] = os.path.join(ckpt, "fcn")
 
 
-def generate_subprocess(work, cli_args):
-    """``python -m tvqvae_tpu_torch.scripts.generate`` over the written
-    checkpoints (64 series, raw and enhanced), started in the background."""
+def cli_subprocess(work, script, cli_args):
+    """``python -m tvqvae_tpu_torch.scripts.<script>`` over the run's dataset
+    and written checkpoints, started in the background."""
     repo = os.path.dirname(os.path.abspath(__file__))
     # its host work is file reads and numpy; two threads leave the cores to
     # the card-vs-CPU checks that run beside it
     env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
            "OMP_NUM_THREADS": "2"}
-    cmd = [sys.executable, "-m", "tvqvae_tpu_torch.scripts.generate", "--dataset_file",
-           work.dataset, "--model_save_dir", work.models, "--n_samples", str(2 * B),
-           "--synthetic_save_dir", os.path.join(work.root, "synthetic"),
-           "--synthetic_fidelity_dir", os.path.join(work.root, "synthetic_fe"), *cli_args]
+    cmd = [sys.executable, "-m", f"tvqvae_tpu_torch.scripts.{script}", "--dataset_file",
+           work.dataset, "--model_save_dir", work.models, *cli_args]
     return subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+def generate_subprocess(work, cli_args):
+    """The generate CLI (64 series, raw and enhanced) in the background."""
+    return cli_subprocess(work, "generate", [
+        "--n_samples", str(2 * B), "--synthetic_save_dir", os.path.join(work.root, "synthetic"),
+        "--synthetic_fidelity_dir", os.path.join(work.root, "synthetic_fe"), *cli_args])
 
 
 def check_generated(proc, t0, work):
@@ -581,6 +610,7 @@ class StepRecorder:
     def __init__(self, torch):
         self.torch = torch
         self.losses, self.events, self.val, self.acc = [], [], [], []
+        self.t_train = self.t_val = None  # host clock at the last train and validation logs
 
     def log_metrics(self, metrics, step):
         if "train/loss" in metrics:
@@ -588,8 +618,22 @@ class StepRecorder:
             self.acc.append(metrics.get("train/acc"))
             self.events.append(self.torch.cuda.Event(enable_timing=True))
             self.events[-1].record()
+            self.t_train = time.perf_counter()
         else:
             self.val.append((step, metrics))
+            self.t_val = time.perf_counter()
+
+    def check_running_metrics(self, label, tags):
+        """The run's one validation logged the JAX runner's running metrics,
+        finite, under each tag; -> its seconds (from the last step's log:
+        the validation, and the drain of that step's device work)."""
+        check(len(self.val) == 1, f"{label}: {len(self.val)} validations, expected 1")
+        step, val = self.val[0]
+        want = {f"val/running_metrics/{k}{t}" for k in ("FID", "MDD", "ACD", "SD", "KD")
+                for t in tags}
+        check(set(val) == want and bool(np.isfinite([float(v) for v in val.values()]).all()),
+              f"{label}: validation logged {sorted(val)}")
+        return self.t_val - self.t_train
 
 
 def train_phase(torch, vq_kernel, work):
@@ -688,10 +732,12 @@ def published_train_twin_check(torch, trained, data, device="cuda"):
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
 
 
-def stage2_phase(torch, vq_kernel, work, data, device="cuda"):
+def stage2_phase(torch, vq_kernel, work, data, metrics, device="cuda"):
     """``train_stage2`` at the published width over the trained stage 1 read
     back from its checkpoint (``load_stage1_bundle``), counted, writing its
-    own; -> (frozen, state, steady ms per step, VQ kernel launches)."""
+    own, with one validation at the end scoring B series sampled from the
+    priors with ``metrics``; -> (frozen, state, steady ms per step, VQ kernel
+    launches)."""
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.train.runner import load_stage1_bundle, train_stage2
 
@@ -709,7 +755,8 @@ def stage2_phase(torch, vq_kernel, work, data, device="cuda"):
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage2(cfg, data, frozen, max_steps=STAGE2_STEPS, device=device, logger=rec,
-                         log_interval=1, save_path=work.stage["2"])
+                         log_interval=1, save_path=work.stage["2"], metrics=metrics,
+                         val_n_samples=B)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vq_kernel.launch_count
@@ -718,7 +765,8 @@ def stage2_phase(torch, vq_kernel, work, data, device="cuda"):
     N = len(data.X_train)
     expected = 2 * -(-N // SWEEP_BATCH)  # the sweep only: the token steps run no encoder
     check(launches == expected, f"VQ kernel launches {launches} in stage 2, expected {expected}")
-    check(len(rec.losses) == STAGE2_STEPS and not rec.val, "train_stage2 logged wrongly")
+    check(len(rec.losses) == STAGE2_STEPS, "train_stage2 logged wrongly")
+    val_s = rec.check_running_metrics("stage 2", ("",))
     losses = [float(v) for v in rec.losses]
     check(bool(np.isfinite(losses).all()), f"non-finite stage-2 loss: {losses}")
     w = STAGE2_WARMUP
@@ -735,6 +783,10 @@ def stage2_phase(torch, vq_kernel, work, data, device="cuda"):
     print(f"[stage2] loss step 1 {losses[0]:.4f}, step {STAGE2_STEPS} {losses[-1]:.4f}; mean of "
           f"steps {w + 1}-{2 * w} {first:.4f}, of the last {w} {last:.4f}; VQ kernel launches "
           f"{launches} (the sweep: 2 per {SWEEP_BATCH}-series batch)", flush=True)
+    print(f"[stage2] validation at step {rec.val[0][0]} with metrics ({B} series sampled, ROCKET "
+          f"features, FID by svd, MDD/ACD/SD/KD): {val_s:.2f} s, not in the steady ms/step; "
+          + ", ".join(f"{k[len('val/running_metrics/'):]} {float(v):.4g}"
+                      for k, v in rec.val[0][1].items()), flush=True)
     return frozen, state, ms, launches
 
 
@@ -893,10 +945,11 @@ def small_stage2_check(torch, devices=("cpu", "cuda"), steps=3):
           f"{worst:.3g}", flush=True)
 
 
-def stage3_phase(torch, vq_kernel, work, frozen, data, device="cuda"):
+def stage3_phase(torch, vq_kernel, work, frozen, data, metrics, device="cuda"):
     """``train_stage3`` at the published width over the stage 1 read from
-    its checkpoint, counted, writing its own; -> (state, steady ms per step,
-    VQ kernel launches)."""
+    its checkpoint, counted, writing its own, with one validation at the end
+    scoring B series sampled from the written stage 2, raw and enhanced, with
+    ``metrics``; -> (state, steady ms per step, VQ kernel launches)."""
     from tvqvae_tpu_torch.config import Config
     from tvqvae_tpu_torch.train.runner import train_stage3
 
@@ -907,7 +960,8 @@ def stage3_phase(torch, vq_kernel, work, frozen, data, device="cuda"):
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage3(cfg, data, frozen, max_steps=STAGE3_STEPS, device=device, logger=rec,
-                         log_interval=1, save_path=work.stage["3"])
+                         log_interval=1, save_path=work.stage["3"], stage2_ckpt=work.stage["2"],
+                         metrics=metrics, val_n_samples=B)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vq_kernel.launch_count
@@ -916,7 +970,8 @@ def stage3_phase(torch, vq_kernel, work, frozen, data, device="cuda"):
     N = len(data.X_train)
     expected = 2 * -(-N // XPRIME_BATCH)  # the sweep only: the steps run on x'
     check(launches == expected, f"VQ kernel launches {launches} in stage 3, expected {expected}")
-    check(len(rec.losses) == STAGE3_STEPS and not rec.val, "train_stage3 logged wrongly")
+    check(len(rec.losses) == STAGE3_STEPS, "train_stage3 logged wrongly")
+    val_s = rec.check_running_metrics("stage 3", ("", " with FE"))
     losses = [float(v) for v in rec.losses]
     check(bool(np.isfinite(losses).all()), f"non-finite stage-3 loss: {losses}")
     w = STAGE3_WARMUP
@@ -933,6 +988,10 @@ def stage3_phase(torch, vq_kernel, work, frozen, data, device="cuda"):
     print(f"[stage3] loss step 1 {losses[0]:.4f}, step {STAGE3_STEPS} {losses[-1]:.4f}; mean of "
           f"steps {w + 1}-{2 * w} {first:.4f}, of the last {w} {last:.4f}; VQ kernel launches "
           f"{launches} (the sweep: 2 per {XPRIME_BATCH}-series batch)", flush=True)
+    print(f"[stage3] validation at step {rec.val[0][0]} with metrics ({B} series sampled from the "
+          f"written stage 2, raw and enhanced): {val_s:.2f} s, not in the steady ms/step; "
+          + ", ".join(f"{k[len('val/running_metrics/'):]} {float(v):.4g}"
+                      for k, v in rec.val[0][1].items()), flush=True)
     return state, ms, launches
 
 
@@ -976,6 +1035,216 @@ def fcn_phase(torch, work, data, device="cuda"):
           f"{float(rec.acc[-1]):.3f}; train accuracy (eval mode) {acc:.3f}; features {tuple(z.shape)} "
           f"finite", flush=True)
     return fcn, ms
+
+
+def eval_metrics(torch, data, device="cuda"):
+    """The ROCKET ``Metrics`` at the published length (1000 kernels,
+    2000-wide features) over the run's train and test splits, built on the
+    card."""
+    from tvqvae_tpu_torch.evaluation import Metrics
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = Metrics(L, C, data.n_classes, B, data.X_train, data.X_test, fid_method="svd",
+                      device=device)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_train, n_test = len(data.X_train), len(data.X_test)
+    check(metrics.z_train.shape == (n_train, 2 * ROCKET_KERNELS)
+          and metrics.z_test.shape == (n_test, 2 * ROCKET_KERNELS)
+          and bool(np.isfinite(metrics.z_train).all() and np.isfinite(metrics.z_test).all()),
+          "bad ROCKET features")
+    print(f"[eval] Metrics(rocket, {ROCKET_KERNELS} kernels) at L={L} built on the card in "
+          f"{dt:.2f} s: z_train {metrics.z_train.shape}, z_test {metrics.z_test.shape} (bank "
+          f"drawn and uploaded, {n_train + n_test} series featurised in batches of {B})", flush=True)
+    return metrics
+
+
+def rocket_vs_cpu(rocket_kernels, x, device="cuda"):
+    """ROCKET features of ``x`` (n, L) on the card and on the CPU: the max
+    columns within 1e-5 of their scale, a PPV entry off by at most 1/ol and
+    in at most 0.1% of the entries (the CPU tests' bounds); -> (max err
+    relative to scale, PPV entries off, entries)."""
+    from tvqvae_tpu_torch.evaluation import apply_kernels
+
+    card = apply_kernels(x, rocket_kernels, device=device)
+    cpu = apply_kernels(x, rocket_kernels, device="cpu")
+    scale = float(np.abs(cpu[:, 1::2]).max())
+    mx_err = float(np.abs(card[:, 1::2] - cpu[:, 1::2]).max()) / scale
+    k = rocket_kernels
+    ol = (k.input_length + 2 * k.paddings - (k.lengths - 1) * k.dilations)[None]
+    diff = np.abs(card[:, 0::2] - cpu[:, 0::2])
+    off = int((diff > 0).sum())
+    check(mx_err <= 1e-5, f"ROCKET max features card vs CPU off by {mx_err} of their scale")
+    check(bool((diff <= 1.0 / ol + 1e-7).all()) and off <= 1e-3 * diff.size,
+          f"ROCKET PPV card vs CPU: {off} of {diff.size} entries off, max {diff.max()}")
+    return mx_err, off, diff.size
+
+
+@contextlib.contextmanager
+def timed_methods(targets):
+    """While inside, each call of ``cls.name`` for ``(cls, name)`` in
+    ``targets`` adds its wall seconds to the yielded dict under ``name``
+    (the methods named must not call one another); restored on exit."""
+    secs, saved = {}, []
+    for cls, name in targets:
+        fn = cls.__dict__[name]
+
+        def timed(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                secs[_name] = secs.get(_name, 0.0) + time.perf_counter() - t0
+
+        saved.append((cls, name, fn))
+        setattr(cls, name, timed)
+    try:
+        yield secs
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def eval_phase(torch, vq_kernel, work, data, metrics, device="cuda"):
+    """Evaluation on the card at the published width, over the trained
+    stages and ``fcn`` on disk: ROCKET (``metrics``) features/s and against
+    the CPU; ``Metrics("supervised_fcn")`` and MiniRocket against the CPU;
+    then, counted, the evaluate entry point (``scripts/evaluate.py::
+    evaluate``: 64 series sampled ``from_checkpoints`` and enhanced, FID by
+    svd on the ROCKET features, FID_rec with its VQ launches, IS, MDD/ACD/
+    SD/KD, the same with the enhancer) and the tau search over two taus;
+    after the count, Schur against svd on the FCN features of the train
+    split and its round trip (n > D). -> (VQ kernel launches of the counted
+    part, ms per 32-series ROCKET batch)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.evaluation import Metrics, MiniRocket
+    from tvqvae_tpu_torch.generation import TrainedModelSampler, search_optimal_tau
+    from tvqvae_tpu_torch.scripts.evaluate import evaluate
+    from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
+    from tvqvae_tpu_torch.utils.logging import RunLogger
+
+    x_train = data.X_train
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z = metrics.compute_z(x_train)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(np.array_equal(z, metrics.z_train), "ROCKET features differ from call to call")
+    rocket_32_ms = 1e3 * dt * B / len(x_train)
+    mx_err, off, n = rocket_vs_cpu(metrics.rocket_kernels, data.X_test[:8, 0].astype(np.float64),
+                                   device)
+    print(f"[eval] ROCKET features: {len(x_train) / dt:.1f} series/s ({len(x_train)} series in "
+          f"{dt:.3f} s, batches of {B}, host normalisation included); card vs CPU on 8 series: max "
+          f"features within {mx_err:.3g} of their scale, {off} of {n} PPV entries off", flush=True)
+
+    fcn_vars = load_checkpoint(work.stage["fcn"])[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fcn_m = Metrics(L, C, data.n_classes, B, x_train, data.X_test,
+                    feature_extractor_type="supervised_fcn", fcn_variables=fcn_vars,
+                    fid_method="svd", device=device)
+    torch.cuda.synchronize()
+    fcn_build_s = time.perf_counter() - t0
+    cpu_m = Metrics(L, C, data.n_classes, 8, x_train[:8], data.X_test[:8],
+                    feature_extractor_type="supervised_fcn", fcn_variables=fcn_vars,
+                    device="cpu")
+    fcn_err = float(np.abs(fcn_m.z_train[:8] - cpu_m.z_train).max() / np.abs(cpu_m.z_train).max())
+    check(fcn_m.z_train.shape == (len(x_train), 128) and fcn_err <= 1e-5,
+          f"FCN features card vs CPU off by {fcn_err} of their scale")
+    print(f"[eval] Metrics(supervised_fcn) over the trained fcn read from disk, built in "
+          f"{fcn_build_s:.2f} s; card vs CPU on 8 series: features within "
+          f"{fcn_err:.3g} of their scale", flush=True)
+
+    fit = x_train[:64]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mr = MiniRocket(L, device=device).fit(fit)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    n_conv = len(fit) * len(mr.kernels) * (L - 8)  # the shortest dilation's output, per fit
+    check(n_conv > 2 ** 24 and all(np.isfinite(b).all() for b in mr.biases), "bad MiniRocket fit")
+    card_mr, cpu_mr = (MiniRocket(L, device=d).fit(fit[:8]) for d in (device, "cpu"))
+    bias_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                   for a, b in zip(card_mr.biases, cpu_mr.biases))
+    za, zb = card_mr(fit[:8]).cpu().numpy(), cpu_mr(fit[:8]).numpy()
+    mr_off = int((np.abs(za - zb) > 1e-6).sum())
+    check(bias_err <= 1e-5 and mr_off <= 1e-3 * za.size,
+          f"MiniRocket card vs CPU: biases off by {bias_err}, {mr_off} features off")
+    print(f"[eval] MiniRocket (dilations {mr.dilations}, {len(mr.kernels)} kernels): fit on "
+          f"{len(fit)} series ({n_conv} values per quantile sort, above 2^24) in {fit_s:.3f} s; "
+          f"card vs CPU on 8 series: biases within {bias_err:.3g} of their scale, {mr_off} of "
+          f"{za.size} features off by more than 1e-6", flush=True)
+
+    cfg = Config()
+    sampler = TrainedModelSampler.from_checkpoints(cfg, work.stage["1"], work.stage["2"],
+                                                   work.stage["3"], batch_size=B, device=device)
+    logger = RunLogger(os.path.join(work.root, "runs", "eval_phase"))
+    # ---- the evaluation path, counted -------------------------------------
+    vq_kernel.launch_count = 0
+    try:
+        with timed_methods([(Metrics, "compute_z"), (Metrics, "fid_score"),
+                            (Metrics, "inception_score"), (Metrics, "stat_metrics"),
+                            (TrainedModelSampler, "sample"), (TrainedModelSampler, "enhance"),
+                            (TrainedModelSampler, "reconstruct")]) as secs:
+            t0 = time.perf_counter()
+            scores = evaluate(cfg, data, os.path.dirname(work.stage["1"]), logger, batch_size=B,
+                              min_num_gen=EVAL_SERIES, use_fe=True,
+                              feature_extractor_type=cfg.evaluation.feature_extractor_type,
+                              fid_method="svd", device=device)
+            eval_s = time.perf_counter() - t0
+    finally:
+        logger.close()
+    t0 = time.perf_counter()
+    tau = search_optimal_tau(cfg, sampler, metrics, x_train, n_samples=EVAL_SERIES,
+                             tau_search_rng=EVAL_TAUS)
+    tau_s = time.perf_counter() - t0
+    launches = vq_kernel.launch_count
+    # ---------------------------------------------------------------------
+
+    n_rec = -(-len(data.X_test) // B)
+    check(launches == 2 * n_rec, f"VQ kernel launches {launches} in eval, expected {2 * n_rec} "
+          f"(2 per reconstructed test batch; the tau search's SVQ round trips launch none)")
+    want = [k for k in JAX_EVAL_KEYS if k != "FID_svq"]  # stage 3 trained at tau 0
+    check(sorted(scores) == sorted(want) and tau in EVAL_TAUS
+          and bool(np.isfinite(list(scores.values())).all()), f"bad scores {scores}, tau {tau}")
+    print(f"[eval] evaluate() in the process ({EVAL_SERIES} series, ROCKET features, FID by svd, "
+          f"against the {len(data.X_test)} test series) in {eval_s:.2f} s: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in scores.items()), flush=True)
+    print(f"[eval] evaluate() seconds by call: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f", the rest (set-up: checkpoints read, the bank drawn) {eval_s - sum(secs.values()):.2f}"
+          f"; VQ kernel launches {launches} (2 per reconstructed test batch)", flush=True)
+    print(f"[eval] tau search over {list(EVAL_TAUS)} ({EVAL_SERIES} samples against the SVQ round "
+          f"trips of {len(x_train)} train series, ROCKET, svd): tau {tau} in {tau_s:.2f} s",
+          flush=True)
+
+    z_rec_train = fcn_m.compute_z(sampler.reconstruct(x_train))
+    t0 = time.perf_counter()
+    schur = fcn_m.fid_score(fcn_m.z_train, z_rec_train, method="schur")
+    schur_s = time.perf_counter() - t0
+    svd = fcn_m.fid_score(fcn_m.z_train, z_rec_train, method="svd")
+    check(abs(schur - svd) <= 1e-6 * abs(svd), f"FCN FID schur {schur} vs svd {svd}")
+    print(f"[eval] FCN features (128 wide, n = {len(x_train)} > D), train split vs its round "
+          f"trip (after the count): FID schur {schur:.10g} vs svd {svd:.10g} (rel "
+          f"{abs(schur - svd) / abs(svd):.3g}, schur {schur_s:.2f} s)", flush=True)
+    return launches, rocket_32_ms
+
+
+def check_evaluated(proc, t0):
+    """Wait for the evaluate CLI and check its printed results: the JAX
+    package's names (``FID_svq`` only where stage 3 trained at tau > 0; here
+    at 0), every value finite."""
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"evaluate exited {proc.returncode}:\n{out[-3000:]}")
+    results = json.loads(out[out.rindex("\n{") + 1:])
+    want = [k for k in JAX_EVAL_KEYS if k != "FID_svq"]
+    check(sorted(results) == sorted(want), f"evaluate printed {sorted(results)}")
+    check(bool(np.isfinite(list(results.values())).all()), f"evaluate: non-finite {results}")
+    print(f"[eval] evaluate CLI (a subprocess, --min_num_gen_samples {EVAL_SERIES} --fid_method "
+          f"svd): the JAX package's {len(results)} result names, finite, in "
+          f"{time.perf_counter() - t0:.1f} s from its start: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in results.items()), flush=True)
 
 
 def stage3_checks(torch, vq_kernel, frozen, state, stage2, data, device="cuda"):
@@ -1300,6 +1569,15 @@ def fcn_profile(torch, fcn, data, step_ms, device="cuda"):
                   step_ms)
 
 
+def rocket_profile(torch, metrics, data, wall_ms):
+    """One 32-series ROCKET featurisation (1000 kernels, L=4633) under the profiler."""
+    from tvqvae_tpu_torch.evaluation import apply_kernels
+
+    x = data.X_train[:B, 0].astype(np.float64)
+    print_profile(f"rocket features of {B}", lambda: apply_kernels(x, metrics.rocket_kernels),
+                  wall_ms)
+
+
 def biases_cancelled_by_batchnorm(model) -> dict:
     """{bias name: weight name of the same conv} for every bias whose
     per-channel constant reaches a train-mode BatchNorm through
@@ -1524,8 +1802,14 @@ def smoke(torch, work, t_start):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     kind = torch.cuda.get_device_name(0)
-    print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}",
-          flush=True)
+    import importlib.util
+
+    import scipy
+
+    # for the record only: the port runs its own isolation forest either way
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} | scipy "
+          f"{scipy.__version__} | sklearn {'importable' if sklearn else 'absent'}", flush=True)
 
     def timed_build():
         t0 = time.perf_counter()
@@ -1587,20 +1871,27 @@ def smoke(torch, work, t_start):
     # ---- training, counted on its own, each stage written to disk -----
     trained, data, step_ms, train_launches = train_phase(torch, vq_kernel, work)
     lap("train")
-    frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, work, data)
+    metrics = eval_metrics(torch, data)  # scores the validations of stages 2-3
+    frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, work, data, metrics)
     lap("stage2")
-    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, work, frozen, data)
+    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, work, frozen, data, metrics)
     lap("stage3")
     fcn, fcn_ms = fcn_phase(torch, work, data)
     lap("fcn")
+    eval_launches, rocket_ms = eval_phase(torch, vq_kernel, work, data, metrics)
+    lap("eval")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
                                            data.n_classes, step_ms)
     lap("ckpt")
+    t_eval = time.perf_counter()
+    evaluating = cli_subprocess(work, "evaluate", [
+        "--min_num_gen_samples", str(EVAL_SERIES), "--fid_method", "svd",
+        "--run_dir", os.path.join(work.root, "runs"), "--device", "cuda"])
 
     # ---- checks after the counted run: the untimed ones while the ------
-    # ---- generate CLI runs, then the timed ones and the profiles -------
+    # ---- generate and evaluate CLIs run, then the timed ones -----------
     try:
         small_model_check(torch, Config, TrainedModelSampler)
         small_train_check(torch)
@@ -1611,13 +1902,16 @@ def smoke(torch, work, t_start):
         published_fe_check(torch, series)
         small_fcn_check(torch)
         small_resume_check(torch, work)
+        lap("untimed checks")
+        check_generated(*generating, work)
+        check_evaluated(evaluating, t_eval)
     except BaseException:
-        generating[0].kill()
-        generating[0].wait()
+        for proc in (generating[0], evaluating):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         raise
-    lap("untimed checks")
-    check_generated(*generating, work)
-    lap("generate wait")
+    lap("CLI wait")
     rel = 0.0
     with torch.inference_mode():
         for start in range(0, series.shape[0], B):
@@ -1646,6 +1940,7 @@ def smoke(torch, work, t_start):
     stage2_profile(torch, stage2, tok_l, tok_h, y, stage2_ms)
     stage3_profile(torch, stage3, data, xprime, stage3_ms)
     fcn_profile(torch, fcn, data, fcn_ms)
+    rocket_profile(torch, metrics, data, rocket_ms)
     lap("profiles")
 
     main_numbers = kernels[MAIN_SHAPE]
@@ -1655,10 +1950,10 @@ def smoke(torch, work, t_start):
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
-                     + ckpt_launches),
+                     + eval_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
-                             "ckpt": ckpt_launches},
+                             "eval": eval_launches, "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

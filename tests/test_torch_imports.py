@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of the JAX package.
 
 ``tvqvae_tpu_torch`` and ``chip_smoke.py`` run on a machine without jax,
-flax, optax, orbax or PyYAML. A subprocess imports every submodule and checks
+flax, optax, orbax, PyYAML or scikit-learn. A subprocess imports every submodule and checks
 ``sys.modules``; a static scan of every import statement catches imports
 that only run inside functions.
 """
@@ -16,7 +16,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "tvqvae_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "tvqvae_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "tvqvae_tpu", "sklearn"}
 
 
 def _modules():
@@ -46,6 +46,8 @@ def test_importing_every_submodule_pulls_in_no_jax():
 def test_the_scan_covers_the_clis_and_the_checkpoint_io():
     assert {"tvqvae_tpu_torch.scripts.train", "tvqvae_tpu_torch.scripts.train_fcn",
             "tvqvae_tpu_torch.scripts.generate", "tvqvae_tpu_torch.scripts.serve",
+            "tvqvae_tpu_torch.scripts.evaluate", "tvqvae_tpu_torch.evaluation.metrics",
+            "tvqvae_tpu_torch.evaluation.isolation_forest",
             "tvqvae_tpu_torch.utils.checkpoint", "tvqvae_tpu_torch.utils.logging"} <= set(_modules())
 
 

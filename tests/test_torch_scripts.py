@@ -134,7 +134,7 @@ def test_serve_builds_a_service_that_answers(trained):
 
 
 UNPORTED = [
-    (train, ["--search_tau"]), (train, ["--bf16"]), (train, ["--bundle_steps", "10"]),
+    (train, ["--bf16"]), (train, ["--bundle_steps", "10"]),
     (train, ["--remat"]), (train, ["--fast_bn"]), (train, ["--bf16_mu"]), (train, ["--bf16_nu"]),
     (train, ["--bf16_head"]), (train, ["--bf16_istft"]), (train, ["--rbg_rng"]),
     (train, ["--no_precompute"]), (train, ["--host_data"]), (train, ["--tp", "2"]),

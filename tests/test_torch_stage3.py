@@ -473,10 +473,18 @@ def test_on_the_fly_step_equals_precomputed_step():
 
 
 def test_percept_loss_is_refused():
-    with pytest.raises(NotImplementedError, match="perceptual"):
+    """A perceptual weight needs its net: the steps refuse a weight > 0
+    without ``percept_fn`` (JAX's drop the term silently), and the runner,
+    whose JAX counterpart passes no ``percept_fn``, refuses the weight."""
+    with pytest.raises(ValueError, match="percept_fn"):
         tst3.make_stage3_train_step_pre(percept_loss_weight=0.1)
-    with pytest.raises(NotImplementedError, match="perceptual"):
+    with pytest.raises(ValueError, match="percept_fn"):
         tst3.make_stage3_train_step(_small_frozen(), percept_loss_weight=0.1)
+    X, y = tdata.make_synthetic_trajectories(n=16, channels=C, length=L, seed=7)
+    data = tdata.DatasetSplits(X[:12], y[:12, None], X[12:], y[12:, None], None, 3)
+    cfg = Config.from_dict({**S1_CFG, "fidelity_enhancer": {**FE_CFG, "percept_loss_weight": 0.1}})
+    with pytest.raises(NotImplementedError, match="percept_fn"):
+        runner.train_stage3(cfg, data, _small_frozen(), max_steps=2, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -538,9 +546,8 @@ def test_train_stage3_paths_agree(tiny):
 
 
 @pytest.mark.parametrize("flag", [
-    {"stage2_ckpt": "s2"}, {"metrics": object()}, {"val_n_samples": 64}, {"bundle_steps": 4},
-    {"compute_dtype": "bfloat16"}, {"fast_norm": True}, {"bf16_mu": True}, {"bf16_nu": True},
-    {"tp": 2},
+    {"bundle_steps": 4}, {"compute_dtype": "bfloat16"}, {"fast_norm": True}, {"bf16_mu": True},
+    {"bf16_nu": True}, {"tp": 2},
 ])
 def test_train_stage3_refuses_unported_options(tiny, flag):
     data, frozen = tiny

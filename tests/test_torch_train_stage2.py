@@ -517,8 +517,7 @@ def test_train_stage2_paths_agree(tiny):
 
 
 @pytest.mark.parametrize("flag", [
-    {"bundle_steps": 4}, {"bf16_mu": True}, {"bf16_nu": True}, {"tp": 2}, {"metrics": object()},
-    {"val_n_samples": 64},
+    {"bundle_steps": 4}, {"bf16_mu": True}, {"bf16_nu": True}, {"tp": 2},
 ])
 def test_train_stage2_refuses_unported_options(tiny, flag):
     data, frozen = tiny

@@ -1,3 +1,3 @@
-from .sampler import TrainedModelSampler
+from .sampler import TrainedModelSampler, search_optimal_tau
 
-__all__ = ["TrainedModelSampler"]
+__all__ = ["TrainedModelSampler", "search_optimal_tau"]

@@ -13,10 +13,12 @@ to given series.
 The constructor takes the trees a checkpoint holds, in the JAX package's
 layout: stage 1 ``{"params", "batch_stats", "vq_l", "vq_h"}``, stage 2
 ``{"params": {"l", "h"}, "h_stats"}`` and stage 3 ``{"params": {"Unet1D_0":
-...}}`` (its ``tau``, which the SVQ τ-search reads, is not used here).
+...}, "tau"}``; ``tau``, the SVQ temperature stage 3 trained at (0 without
+one), is what the evaluation's ``FID_svq`` round trip uses.
 ``from_checkpoints`` reads them from the port's checkpoint files, as the JAX
 sampler reads its Orbax ones (``tools/export_jax_ckpt.py`` converts those);
 ``from_init`` builds seeded random weights instead.
+``search_optimal_tau`` is the FID-matching search for that temperature.
 bfloat16 decoding and the ESS sampler are not ported yet and raise
 ``NotImplementedError``.
 """
@@ -36,10 +38,10 @@ from tvqvae_tpu_torch.models.maskgit import (
 )
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
-from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn
+from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn, priors_from_tree
 from tvqvae_tpu_torch.train.stage3 import init_stage3
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
-from tvqvae_tpu_torch.utils.convert import fe_from_jax, prior_from_jax, stage1_from_jax
+from tvqvae_tpu_torch.utils.convert import fe_from_jax, stage1_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
 
@@ -70,19 +72,15 @@ class TrainedModelSampler:
         dev = resolve_device(device)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels)
         frozen = FrozenStage1.from_state_dict(spec, stage1_from_jax(stage1), dev)
-        params = stage2["params"]
-        # imported reference priors carry square project_in/out layers
-        force = ("project_in" in params["l"], "project_in" in params["h"])
-        t_l, t_h = build_transformers(cfg, spec, n_classes, force)
-        sd_l, sd_h = prior_from_jax(params, stage2.get("h_stats"))
-        t_l.load_state_dict(sd_l)
-        t_h.load_state_dict(sd_h)
+        t_l, t_h = priors_from_tree(cfg, spec, n_classes, stage2)
         fe = None
         if stage3 is not None:
             fe = FidelityEnhancer.from_config(cfg, input_length, in_channels)
             fe.load_state_dict(fe_from_jax(stage3["params"]))
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
                        use_fidelity_enhancer)
+        if stage3 is not None:
+            self.tau = float(np.asarray(stage3.get("tau", 0.0)))
 
     @classmethod
     def from_checkpoints(cls, cfg: Config, stage1_ckpt: str, stage2_ckpt: str,
@@ -138,6 +136,7 @@ class TrainedModelSampler:
         self._sample_tokens = make_sampling_fn(frozen, self.t_l, self.t_h, self.mg_spec)
         self.fe = None if fe is None else fe.to(device).eval()
         self.use_fe = use_fe
+        self.tau = 0.0
 
     # ------------------------------------------------------------------
 
@@ -209,3 +208,25 @@ class TrainedModelSampler:
                                  device=self.device)
             outs.append(self._enhance(xb).cpu().numpy())
         return np.concatenate(outs)
+
+
+def search_optimal_tau(cfg: Config, sampler: TrainedModelSampler, metrics, X_train: np.ndarray,
+                       n_samples: int = 1024, tau_search_rng=None, seed: int = 0) -> float:
+    """The SVQ temperature whose stochastic round trip of ``X_train`` comes
+    closest, by ``metrics.fid_score``, to ``n_samples`` unconditional
+    samples: one FID per tau of ``tau_search_rng`` (default
+    ``cfg.fidelity_enhancer.tau_search_rng``), the arg-min returned. The
+    reference defines it and never calls it; the train CLI's
+    ``--search_tau`` does."""
+    taus = list(tau_search_rng or cfg.fidelity_enhancer.tau_search_rng)
+    _, _, xhat = sampler.sample(n_samples, "unconditional", seed=seed)
+    z_hat = metrics.compute_z(xhat)
+    fids = []
+    for tau in taus:
+        xprime = sampler.reconstruct(X_train, svq_temp=float(tau), seed=seed)
+        fid = metrics.fid_score(z_hat, metrics.compute_z(xprime))
+        fids.append(float(fid))
+        print(f"[tau-search] tau={tau} fid={fid:.4f}")
+    best = taus[int(np.argmin(fids))]
+    print(f"[tau-search] optimal tau = {best}")
+    return float(best)

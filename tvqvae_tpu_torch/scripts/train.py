@@ -14,11 +14,15 @@ records its budget is skipped, and an interrupted one resumes from its
 snapshot. ``--config`` takes the reference YAML schema, or the same schema as
 ``.json`` where PyYAML is missing.
 
+Stages 2 and 3 score samples at each validation with an
+``evaluation.Metrics`` over the data (``evaluation.feature_extractor_type``;
+the supervised FCN needs ``fcn`` on disk and falls back to ROCKET without
+it) unless ``--no_val_metrics``; ``--search_tau`` picks stage 3's SVQ
+temperature by FID first (``generation.search_optimal_tau``).
+
 The JAX flags all parse, defaulting to what the port runs (float32, one
 optimizer step per dispatch, the precomputed token and x' sets, on the
 card); asking for an option the port does not run is an error naming it.
-The validation-time sampling metrics are not ported, so every run is a
-``--no_val_metrics`` run.
 """
 
 import argparse
@@ -26,8 +30,11 @@ import os
 from pathlib import Path
 
 from tvqvae_tpu_torch.data import get_data
+from tvqvae_tpu_torch.evaluation import Metrics
+from tvqvae_tpu_torch.generation import TrainedModelSampler, search_optimal_tau
 from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
 from tvqvae_tpu_torch.train import runner
+from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
 from tvqvae_tpu_torch.utils.logging import RunLogger
 
 
@@ -45,13 +52,13 @@ def build_argparser():
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no_val_metrics", action="store_true",
-                   help="skip validation-time sampling metrics in stages 2/3 (the port "
-                        "has none yet, so this is always the case)")
+                   help="skip validation-time sampling metrics in stages 2/3")
+    p.add_argument("--search_tau", action="store_true",
+                   help="FID-search the SVQ temperature before stage 3 (default tau=0)")
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for the JAX command line: on the card the port always "
                         "runs its CUDA VQ kernel")
     # the JAX package's options the port does not run: refused when asked for
-    p.add_argument("--search_tau", action="store_true", help="not ported yet")
     p.add_argument("--bf16", action="store_true", help="not ported yet")
     p.add_argument("--bundle_steps", type=int, default=1,
                    help="optimizer steps per dispatch; > 1 is not ported yet")
@@ -73,11 +80,25 @@ def build_argparser():
     return p
 
 
+def search_tau(cfg, data, paths, device) -> float:
+    """``search_optimal_tau`` over the trained stages 1-2 with ROCKET
+    features, ``min_num_gen_samples`` samples against the train split, as
+    the JAX CLI runs it."""
+    sampler = TrainedModelSampler.from_checkpoints(cfg, paths["1"], paths["2"],
+                                                   batch_size=cfg.evaluation.batch_size,
+                                                   device=device)
+    metrics = Metrics(data.input_length, data.in_channels, data.n_classes,
+                      cfg.evaluation.batch_size, data.X_train, data.X_test,
+                      feature_extractor_type="rocket", device=device)
+    return search_optimal_tau(cfg, sampler, metrics, data.X_train,
+                              n_samples=cfg.evaluation.min_num_gen_samples)
+
+
 def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
     refuse_unported(p, {
-        "--search_tau": args.search_tau, "--bf16": args.bf16,
+        "--bf16": args.bf16,
         "--bundle_steps > 1": args.bundle_steps > 1, "--remat": args.remat,
         "--fast_bn": args.fast_bn, "--bf16_mu": args.bf16_mu, "--bf16_nu": args.bf16_nu,
         "--bf16_head": args.bf16_head, "--bf16_istft": args.bf16_istft,
@@ -101,9 +122,22 @@ def main(argv=None):
         )
 
     stages = ["1", "2", "3"] if args.stage == "all" else [args.stage]
+    val_metrics = None
     if not args.no_val_metrics and any(s in ("2", "3") for s in stages):
-        print("[train] validation-time sampling metrics are not ported yet; "
-              "training as with --no_val_metrics")
+        # the configured featuriser; the supervised FCN needs a trained fcn
+        # checkpoint and falls back to ROCKET without one
+        fx = cfg.evaluation.feature_extractor_type
+        fcn_vars = None
+        if fx == "supervised_fcn":
+            if os.path.exists(paths["fcn"]):
+                fcn_vars = load_checkpoint(paths["fcn"])[0]
+            else:
+                print("[train] no fcn checkpoint; val metrics use rocket")
+                fx = "rocket"
+        val_metrics = Metrics(data.input_length, data.in_channels, data.n_classes,
+                              cfg.evaluation.batch_size, data.X_train, data.X_test,
+                              feature_extractor_type=fx, fcn_variables=fcn_vars,
+                              device=args.device)
     common = dict(max_steps=args.max_steps, seed=args.seed, device=args.device)
     for stage in stages:
         log = logger(f"stage{stage}" if stage != "fcn" else "fcn")
@@ -112,10 +146,15 @@ def main(argv=None):
                 runner.train_stage1(cfg, data, logger=log, save_path=paths["1"], **common)
             elif stage == "2":
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
-                runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"], **common)
+                runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"],
+                                    metrics=val_metrics, **common)
             elif stage == "3":
+                tau = search_tau(cfg, data, paths, args.device) if args.search_tau else 0.0
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
-                runner.train_stage3(cfg, data, frozen, logger=log, save_path=paths["3"], **common)
+                runner.train_stage3(
+                    cfg, data, frozen, tau=tau, logger=log, save_path=paths["3"],
+                    stage2_ckpt=paths["2"] if os.path.exists(paths["2"]) else None,
+                    metrics=val_metrics, **common)
             elif stage == "fcn":
                 runner.train_fcn(cfg, data, logger=log, seed=args.seed, device=args.device,
                                  save_path=paths["fcn"])

@@ -29,6 +29,13 @@ validation boundary but the last, and resumes from that snapshot. Snapshots
 are synchronous: the JAX package's ``AsyncSnapshotter`` hides a slow link to
 its device, which the card's host does not have. The runners also return
 their final state (the FCN runner its trained module).
+
+With ``metrics`` (an ``evaluation.Metrics``) stages 2 and 3 score samples at
+each validation: ``val_n_samples`` (default ``min(min_num_gen_samples,
+1024)``) unconditional series from the priors being trained (stage 2) or
+from ``stage2_ckpt``'s, raw and through the enhancer being trained (stage
+3), against ``metrics.z_test`` (FID by ``"svd"``) and ``metrics.X_test``,
+logged as ``val/running_metrics/{FID,MDD,ACD,SD,KD}[ with FE]``.
 """
 
 import dataclasses
@@ -46,7 +53,7 @@ from tvqvae_tpu_torch.data.dataset import DatasetSplits, make_batches
 from tvqvae_tpu_torch.models.fcn import FCN
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.layers import init_weights_
-from tvqvae_tpu_torch.models.maskgit import FrozenStage1, build_transformers
+from tvqvae_tpu_torch.models.maskgit import FrozenStage1, MaskGITSpec, build_transformers
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.models.vq import CodebookState
 from tvqvae_tpu_torch.train.optim import adamw
@@ -60,7 +67,9 @@ from tvqvae_tpu_torch.train.stage2 import (
     Stage2TrainState,
     create_stage2_state,
     init_stage2,
+    make_sampling_fn,
     precompute_token_dataset,
+    priors_from_tree,
     stage2_train_step_tokens,
 )
 from tvqvae_tpu_torch.train.stage3 import (
@@ -258,6 +267,44 @@ def _unported(**flags) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in flags.items() if v)}")
 
 
+def _val_samples(cfg: Config, sample_fn: Callable, n_val: Optional[int], seed: int, dev,
+                 enhance: Optional[Callable] = None):
+    """``n_val`` (default ``min(min_num_gen_samples, 1024)``) unconditional
+    series in batches of ``evaluation.batch_size`` from a generator seeded
+    ``seed`` -> host arrays [("", x)] and, with ``enhance``, (" with FE",
+    enhance(x)) batch by batch."""
+    n_val = n_val or min(cfg.evaluation.min_num_gen_samples, 1024)
+    vbatch = cfg.evaluation.batch_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs, xs_fe = [], []
+    for start in range(0, n_val, vbatch):
+        x = sample_fn(min(vbatch, n_val - start), None, generator=gen)[2]
+        xs.append(x.cpu().numpy())
+        if enhance is not None:
+            with torch.inference_mode():
+                xs_fe.append(enhance(x).cpu().numpy())
+    sets = [("", np.concatenate(xs))]
+    if enhance is not None:
+        sets.append((" with FE", np.concatenate(xs_fe)))
+    return sets
+
+
+def _running_metrics(metrics, sets) -> dict:
+    """FID (``"svd"``, the outlier filter on) against ``metrics.z_test`` and
+    MDD/ACD/SD/KD against ``metrics.X_test``, per (tag, series) of
+    ``sets``, under the JAX package's ``running_metrics/...`` names."""
+    out = {}
+    for tag, x in sets:
+        out[f"running_metrics/FID{tag}"] = metrics.fid_score(metrics.z_test, metrics.z_gen_fn(x),
+                                                             method="svd")
+        mdd, acd, sd, kd = metrics.stat_metrics(metrics.X_test, x)
+        out[f"running_metrics/MDD{tag}"] = mdd
+        out[f"running_metrics/ACD{tag}"] = acd
+        out[f"running_metrics/SD{tag}"] = sd
+        out[f"running_metrics/KD{tag}"] = kd
+    return out
+
+
 def _batch_order(N: int, batch_size: int, steps: int, seed: int, dev) -> torch.Tensor:
     """(steps, batch_size) row indices on ``dev``, in
     ``make_batches(shuffle=True, seed=seed, repeat=True)``'s order."""
@@ -371,12 +418,12 @@ def train_stage2(
     of ``dataset.batch_sizes["stage2"]`` follow ``make_batches(shuffle=True,
     seed=seed, repeat=True)`` (the JAX token path permutes on the device with
     threefry instead, a deviation its own runner calls non-semantic); masks
-    and dropouts come from a generator seeded ``seed + 1``. The
-    validation-time sampling metrics (``metrics``, ``val_n_samples``), step
-    bundles, bf16 moments and tensor parallelism of the JAX runner are not
-    ported and raise ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1,
-              metrics=metrics is not None, val_n_samples=val_n_samples is not None)
+    and dropouts come from a generator seeded ``seed + 1``. With ``metrics``
+    each validation scores ``val_n_samples`` series sampled from the priors
+    as they are, from a generator seeded ``10_000 + step`` (module
+    docstring). The step bundles, bf16 moments and tensor parallelism of the
+    JAX runner are not ported and raise ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1)
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
@@ -402,7 +449,16 @@ def train_stage2(
         idx = order[step - 1]
         return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
 
-    _loop("stage2", max_steps, train_once, None, logger,
+    eval_once = None
+    if metrics is not None:
+        sample_fn = make_sampling_fn(frozen, state.t_l, state.t_h,
+                                     MaskGITSpec.from_config(cfg, frozen.model.spec))
+
+        def eval_once(step):
+            return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
+                                                          10_000 + step, dev))
+
+    _loop("stage2", max_steps, train_once, eval_once, logger,
           cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
           start_step, _snapshotter(save_path, state, gen))
     if save_path:
@@ -449,14 +505,24 @@ def train_stage3(
     and is not here: ``train/stage3.py::make_stage3_train_step`` is that
     step. Batches of ``dataset.batch_sizes["stage3"]``;
     the SVQ draws and the dropout masks come from a generator seeded
-    ``seed + 1``. The validation-time sampling metrics (``stage2_ckpt``,
-    ``metrics``, ``val_n_samples``: ROADMAP item 12), step bundles, reduced
-    precision and tensor parallelism of the JAX runner are not ported and
-    raise ``NotImplementedError``; so does a perceptual loss weight > 0."""
-    _unported(stage2_ckpt=stage2_ckpt is not None, metrics=metrics is not None,
-              val_n_samples=val_n_samples is not None, bundle_steps=bundle_steps > 1,
-              compute_dtype=compute_dtype != "float32", fast_norm=fast_norm, bf16_mu=bf16_mu,
-              bf16_nu=bf16_nu, tp=tp > 1)
+    ``seed + 1``. With ``metrics`` and ``stage2_ckpt`` (a stage-2
+    checkpoint's path) each validation scores ``val_n_samples``
+    series sampled from those priors, from a generator seeded ``20_000 +
+    step``, raw and through the enhancer as it is (module docstring); with
+    ``metrics`` alone it scores nothing, as in JAX. The step bundles,
+    reduced precision and tensor parallelism of the JAX runner are not
+    ported and raise ``NotImplementedError``. So does
+    ``percept_loss_weight`` > 0: the JAX runner hands its steps no
+    ``percept_fn`` and so trains such a config without the term; the port
+    refuses it rather than do the same (``train/stage3.py`` takes the
+    term)."""
+    _unported(bundle_steps=bundle_steps > 1, compute_dtype=compute_dtype != "float32",
+              fast_norm=fast_norm, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1)
+    if cfg.fidelity_enhancer.percept_loss_weight > 0.0:
+        raise NotImplementedError(
+            "percept_loss_weight > 0: the JAX runner passes its stage-3 steps no percept_fn "
+            "and would train without the perceptual term; build the step with "
+            "train/stage3.py::make_stage3_train_step_pre(weight, percept_fn) instead")
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
@@ -465,10 +531,8 @@ def train_stage3(
     if save_path and _stage_completed(save_path, max_steps, resume, "stage3"):
         return None
     order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
-    percept = cfg.fidelity_enhancer.percept_loss_weight
     precompute = tau == 0.0
-    step_fn = (make_stage3_train_step_pre(percept) if precompute
-               else make_stage3_train_step(frozen, tau, percept))
+    step_fn = make_stage3_train_step_pre() if precompute else make_stage3_train_step(frozen, tau)
 
     fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels),
                      torch.Generator().manual_seed(seed), dev)
@@ -489,7 +553,18 @@ def train_stage3(
         def train_once(step):
             return step_fn(state, X_dev[order[step - 1]], gen)[1]
 
-    _loop("stage3", max_steps, train_once, None, logger,
+    eval_once = None
+    if metrics is not None and stage2_ckpt is not None:
+        t_l, t_h = priors_from_tree(cfg, frozen.model.spec, data.n_classes,
+                                    load_checkpoint(stage2_ckpt)[0])
+        sample_fn = make_sampling_fn(frozen, t_l.to(dev).eval(), t_h.to(dev).eval(),
+                                     MaskGITSpec.from_config(cfg, frozen.model.spec))
+
+        def eval_once(step):
+            return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
+                                                          20_000 + step, dev, enhance=state.fe))
+
+    _loop("stage3", max_steps, train_once, eval_once, logger,
           cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,
           start_step, _snapshotter(save_path, state, gen))
     if save_path:

@@ -20,7 +20,7 @@ argument; here ``make_sampling_fn`` closes over the modules.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import (
     FrozenStage1,
     MaskGITSpec,
+    build_transformers,
     decode_tokens,
     encode_tokens,
     iterative_decoding,
@@ -36,6 +37,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     random_mask_tokens,
 )
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
+from tvqvae_tpu_torch.utils.convert import prior_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
 Metrics = Dict[str, torch.Tensor]
@@ -57,6 +59,20 @@ def init_stage2(t_l: BidirectionalTransformer, t_h: BidirectionalTransformer,
     weights on every device). -> (t_l, t_h) on ``device``."""
     dev = resolve_device(device)
     return init_weights_(t_l, generator).to(dev), init_weights_(t_h, generator).to(dev)
+
+
+def priors_from_tree(cfg, s1, n_classes: int, tree: Mapping):
+    """Both priors, on the CPU, from a stage-2 tree in the JAX package's
+    layout (``{"params": {"l", "h"}, "h_stats"}``, as a checkpoint holds
+    it); imported reference priors carry square project_in/out layers,
+    which the tree shows. -> (t_l, t_h)."""
+    params = tree["params"]
+    force = ("project_in" in params["l"], "project_in" in params["h"])
+    t_l, t_h = build_transformers(cfg, s1, n_classes, force)
+    sd_l, sd_h = prior_from_jax(params, tree.get("h_stats"))
+    t_l.load_state_dict(sd_l)
+    t_h.load_state_dict(sd_h)
+    return t_l, t_h
 
 
 def create_stage2_state(t_l: BidirectionalTransformer, t_h: BidirectionalTransformer,

@@ -17,9 +17,14 @@ masks. At tau = 0 the round trip draws nothing, so from the same generator
 state the two steps make the same update. ``noise`` hands in the SVQ's
 Gumbel draws instead (the parity tests pass JAX's). The state holds the
 enhancer and its optimizer, which the step updates in place; metrics stay
-on the device as 0-dim tensors. The MiniRocket perceptual loss
-(``percept_loss_weight`` > 0, 0 in the published config) needs the
-evaluation features (ROADMAP item 12) and raises ``NotImplementedError``.
+on the device as 0-dim tensors.
+
+With ``percept_loss_weight`` w > 0 (0 in the published config) the loss is
+L1 + w mean((percept_fn(FE(x')) - percept_fn(x))^2), ``percept_fn`` being
+e.g. a fitted ``evaluation.MiniRocket``. Its PPV features are a hard
+threshold, so the term has no gradient, in JAX as here: it moves the
+reported ``loss`` and ``percept_loss``, not the update. JAX's step drops
+the term silently when no ``percept_fn`` is given; here that is an error.
 """
 
 from dataclasses import dataclass
@@ -57,9 +62,10 @@ def create_stage3_state(fe: FidelityEnhancer, tx: Callable) -> Stage3TrainState:
     return Stage3TrainState(fe, *tx(fe.parameters()))
 
 
-def _check_percept(percept_loss_weight: float) -> None:
-    if percept_loss_weight > 0.0:
-        raise NotImplementedError("the MiniRocket perceptual loss is not ported yet")
+def _check_percept(percept_loss_weight: float, percept_fn: Optional[Callable]) -> None:
+    if percept_loss_weight > 0.0 and percept_fn is None:
+        raise ValueError("percept_loss_weight > 0 needs a percept_fn (e.g. a fitted "
+                         "evaluation.MiniRocket) for the perceptual loss")
 
 
 @torch.no_grad()
@@ -79,42 +85,49 @@ def svq_roundtrip(frozen: FrozenStage1, x: torch.Tensor, tau: float,
 
 
 def _fe_update(state: Stage3TrainState, x: torch.Tensor, xprime: torch.Tensor,
-               generator: Optional[torch.Generator]) -> Tuple[Stage3TrainState, Metrics]:
-    """The L1 update shared by both steps: FE(x') in train mode (dropout
-    masks from ``generator``), mean |FE(x') - x|, one AdamW step."""
+               generator: Optional[torch.Generator], percept_loss_weight: float = 0.0,
+               percept_fn: Optional[Callable] = None) -> Tuple[Stage3TrainState, Metrics]:
+    """The update shared by both steps: FE(x') in train mode (dropout masks
+    from ``generator``), mean |FE(x') - x| plus the weighted perceptual
+    term, one AdamW step."""
     xhat = state.fe(xprime, train=True, generator=generator)
     recons = (xhat - x).abs().mean()
+    percept = torch.zeros((), device=recons.device)
+    if percept_loss_weight > 0.0:
+        percept = percept_loss_weight * ((percept_fn(xhat) - percept_fn(x)) ** 2).mean()
+    loss = recons + percept
     state.optimizer.zero_grad(set_to_none=True)
-    recons.backward()
+    loss.backward()
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    recons = recons.detach()
-    return state, {"loss": recons, "fidelity_enhancer_loss": recons,
-                   "percept_loss": torch.zeros((), device=recons.device)}
+    return state, {"loss": loss.detach(), "fidelity_enhancer_loss": recons.detach(),
+                   "percept_loss": percept.detach()}
 
 
 def make_stage3_train_step(frozen: FrozenStage1, tau: float = 0.0,
-                           percept_loss_weight: float = 0.0) -> Callable:
+                           percept_loss_weight: float = 0.0,
+                           percept_fn: Optional[Callable] = None) -> Callable:
     """step(state, x, generator=None, noise=None) -> (state, metrics), the
     on-the-fly path: ``svq_roundtrip`` of ``x`` at ``tau`` (the SVQ draws
     from ``generator`` first, or ``noise``), then the update."""
-    _check_percept(percept_loss_weight)
+    _check_percept(percept_loss_weight, percept_fn)
 
     def step(state, x, generator=None, noise=None):
         xprime = svq_roundtrip(frozen, x, tau, generator, noise)
-        return _fe_update(state, x, xprime, generator)
+        return _fe_update(state, x, xprime, generator, percept_loss_weight, percept_fn)
 
     return step
 
 
-def make_stage3_train_step_pre(percept_loss_weight: float = 0.0) -> Callable:
+def make_stage3_train_step_pre(percept_loss_weight: float = 0.0,
+                               percept_fn: Optional[Callable] = None) -> Callable:
     """step(state, x, xprime, generator=None) -> (state, metrics), on a
     precomputed x' (valid at tau = 0 only, where x' is deterministic)."""
-    _check_percept(percept_loss_weight)
+    _check_percept(percept_loss_weight, percept_fn)
 
     def step(state, x, xprime, generator=None):
-        return _fe_update(state, x, xprime, generator)
+        return _fe_update(state, x, xprime, generator, percept_loss_weight, percept_fn)
 
     return step
 
