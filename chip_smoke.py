@@ -59,7 +59,31 @@ It needs no JAX and no network. Phases, each fatal on failure:
      package's result names, finite; its seconds by call) and the tau search
      over two taus; after the count, Schur against svd on the 128-wide FCN
      features of the train split and its round trip (n > D).
- 12. ckpt: each checkpoint's bytes, write and read seconds; one
+ 12. bf16: the counters set to 0 again, the JAX package's production
+     recipe under ``--bf16`` at the published width: phase 4's seeded
+     weights under the JAX sampler's bfloat16 defaults
+     (``compute_dtype="bfloat16"``, ``fast_bn``, ``bf16_head``,
+     ``bf16_istft``): tokens equal to phase 4's float32 sampler's under the
+     same noise, series within 0.30 of their scale (JAX's own bfloat16 gap
+     on such weights: their BatchNorms keep their identity statistics,
+     which do not normalise the random stacks), and the stages trained in
+     phases 7-8 read ``from_checkpoints`` in bfloat16 within 0.06 of phase
+     8's float32 decode of the same tokens; ms per 32-batch and device busy
+     beside the float32 sampler's and beside the same weights in float32
+     with ``fast_bn`` (the generate and serve CLIs' default), the top
+     device ops of one batch, ``reconstruct`` of 64 series (4 VQ launches:
+     the bfloat16 encoders hand the kernel float32 latents);
+     ``train_stage1`` with ``compute_dtype="bfloat16"``, ``fast_bn``,
+     ``bf16_mu``, ``bf16_head`` for 20 steps on phase 7's data (loss finite
+     and falling, Adam's first moment stored in bfloat16, steady ms per
+     step and the memory it adds beside phase 7's), then a few steps each
+     (CUDA events) of the runner's float32 defaults and the train CLI's
+     (float32, ``fast_bn``, ``bf16_mu``) on phase 7's weights, and of the
+     production recipe with and without ``remat``, with the peak memory
+     each adds; ``train_stage3`` over phase 8's stage 1 with a bfloat16
+     stream and ``fast_norm`` for 10 steps (ms per step, the memory it
+     adds). Its VQ launches are ``launches_by_path.bf16``.
+ 13. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
      published width against the in-memory sampler of the trained states
@@ -70,7 +94,7 @@ It needs no JAX and no network. Phases, each fatal on failure:
      finite, in original units), then the evaluate CLI (the JAX package's
      result names, finite); both run beside the untimed checks below, which
      wait for them before the timed ones.
- 13. checks after the counted runs: the reconstruct tokens against the
+ 14. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
      three training steps of each stage; one more published-width training
@@ -84,9 +108,11 @@ It needs no JAX and no network. Phases, each fatal on failure:
      small stage 3 and a small FCN on the card against the CPU; the
      published-width enhancer on the card against the CPU and a float64
      witness; the sampler with a seeded enhancer, and the trained enhancer
-     over a batch sampled from the trained priors; a small stage 1 resumed
-     from its snapshot against the same run straight through.
- 14. profile: device time by kernel and the device's idle share over one
+     over a batch sampled from the trained priors; a small model in
+     bfloat16 on the card against the CPU (samples, a stage-1 step and an
+     enhancer step); a small stage 1 resumed from its snapshot against the
+     same run straight through.
+ 15. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage,
      one FCN step and one 32-series ROCKET featurisation (torch.profiler).
 
@@ -137,6 +163,19 @@ SMALL_STEPS, SMALL_FCN_STEPS = 40, 60
 VQ_KERNELS = ("assign_kernel", "merge_stats_kernel", "final_kernel")  # csrc/vq_nearest.cu
 CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
             "aten::convolution_backward")
+# the production recipe of the JAX train CLI under --bf16 (its defaults:
+# fast_bn, bf16_mu, bf16_head); the bound JAX holds its own bfloat16 decode
+# to against float32 (tests/test_bf16_decode.py), which the port's holds at
+# the published width with trained-like BatchNorm statistics
+# (tests/test_torch_published_width.py); and the bound for phase 4's seeded
+# weights, whose BatchNorms keep their identity statistics and so do not
+# normalise the random stacks: JAX's own bfloat16 decode of those weights
+# lies 0.300 (LF) and 0.111 (HF) of scale from its float32 one, the port's
+# on the CPU 0.245 and 0.129 (tests/test_torch_published_width.py), and
+# published_width_check holds the card's gap to the CPU's
+PRODUCTION = dict(compute_dtype="bfloat16", fast_bn=True, bf16_mu=True, bf16_head=True)
+BF16_STACK, BF16_PUBLISHED = 0.06, 0.30
+BF16_TRAIN_STEPS, BF16_STAGE3_STEPS, BF16_TIMED_STEPS = 20, 10, 4
 SMALL_CFG = {
     "encoder": {"init_dim": 4, "hid_dim": 16, "n_resnet_blocks": 1,
                 "downsampled_width": {"lf": 4, "hf": 8}},
@@ -544,8 +583,10 @@ def stop_server(srv):
 
 def device_events(torch, fn, ops=None):
     """Run fn under torch.profiler (CUPTI): profiled wall ms and the device
-    events as (name, duration us). With ``ops`` (a list), also append the
-    convolution ops as (device ms, calls, input shapes), largest first."""
+    events as (name, duration us), read from the profiler's raw events (the
+    tree ``prof.events()`` builds costs seconds per ten thousand ops). With
+    ``ops`` (a list), also append the convolution ops as (device ms, calls,
+    input shapes), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -556,8 +597,9 @@ def device_events(torch, fn, ops=None):
         fn()
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t0)
-    events = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+              and not getattr(e, "is_hidden_event", lambda: False)()]
     if ops is not None:
         for e in prof.key_averages(group_by_input_shape=True):
             if e.key in CONV_OPS:
@@ -569,14 +611,15 @@ def device_events(torch, fn, ops=None):
 def print_profile(label, fn, wall_ms, n_convs=6):
     """Device busy time, idle share against ``wall_ms`` (the unprofiled time
     of the same work: the profiler slows the host), the top device kernels
-    and the top convolutions by shape, of one call of ``fn``."""
+    and (``n_convs`` > 0) the top convolutions by shape, of one call of
+    ``fn``. -> the device busy ms (0 when the profiler saw none)."""
     import torch
 
-    convs = []
+    convs = [] if n_convs else None
     prof_ms, events = device_events(torch, fn, convs)
     if not events:
         print(f"[profile] {label}: the profiler saw no device time: not measured", flush=True)
-        return
+        return 0.0
     busy_ms = sum(d for _, d in events) / 1e3
     by_name = {}
     for name, d in events:
@@ -591,8 +634,9 @@ def print_profile(label, fn, wall_ms, n_convs=6):
     for name, (n, t) in top:
         print(f"[profile]   {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}", flush=True)
     for key in CONV_OPS:
-        for ms, n, _, shapes in [c for c in convs if c[2] == key][:n_convs]:
+        for ms, n, _, shapes in [c for c in convs or () if c[2] == key][:n_convs]:
             print(f"[profile]   conv {ms:8.3f} ms  x{n:<3d} {key[6:]} {shapes}", flush=True)
+    return busy_ms
 
 
 def profile_phase(torch, sampler, series, wall_ms):
@@ -650,6 +694,7 @@ def train_phase(torch, vq_kernel, work):
     data = get_data(work.dataset, cfg.dataset.features)
     rec = StepRecorder(torch)
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
     vq_kernel.launch_count = 0
     t0 = time.perf_counter()
     state = train_stage1(cfg, data, max_steps=TRAIN_STEPS, device="cuda", logger=rec,
@@ -676,12 +721,13 @@ def train_phase(torch, vq_kernel, work):
           f"{len(data.X_train)} train / {n_test} test series: {TRAIN_STEPS} steps in {wall:.1f} s "
           f"(with init, upload, validation and the checkpoint); "
           f"steady {ms:.2f} ms/step = {1e3 / ms:.3f} steps/s (CUDA events, steps "
-          f"{warm + 2}-{TRAIN_STEPS}); peak memory {peak_gb:.2f} GiB", flush=True)
+          f"{warm + 2}-{TRAIN_STEPS}); peak memory {peak_gb:.2f} GiB, of which "
+          f"{peak_gb - base_gb:.2f} GiB above what was allocated before", flush=True)
     print(f"[train] loss step 1 {losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; mean of "
           f"steps {warm + 1}-{warm + 5} {first:.4f}, of the last 5 {last:.4f}; val loss "
           f"{val['val/loss']:.4f} at step {rec.val[-1][0]}; VQ kernel launches {launches} "
           f"(2 per step, 2 per validation batch: {len(rec.val)} x {val_batches})", flush=True)
-    return state, data, ms, launches
+    return state, data, ms, launches, peak_gb - base_gb
 
 
 def published_train_twin_check(torch, trained, data, device="cuda"):
@@ -992,7 +1038,7 @@ def stage3_phase(torch, vq_kernel, work, frozen, data, metrics, device="cuda"):
           f"written stage 2, raw and enhanced): {val_s:.2f} s, not in the steady ms/step; "
           + ", ".join(f"{k[len('val/running_metrics/'):]} {float(v):.4g}"
                       for k, v in rec.val[0][1].items()), flush=True)
-    return state, ms, launches
+    return state, ms, launches, peak_gb - base_gb
 
 
 def fcn_phase(torch, work, data, device="cuda"):
@@ -1695,7 +1741,10 @@ def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
     the bound ``tests/test_torch_published_width.py`` holds decoded series
     to. Both float32 decodes are printed against the float64 one: float32
     rounding alone takes this decode ~1e-4 of its scale from it on either
-    device (PERF.md section 6)."""
+    device (PERF.md section 6). The same tokens decoded under the JAX
+    sampler's bfloat16 defaults: the card's gap from its float32 decode
+    between 0.25x and 4x the CPU's (the guard of
+    ``tests/test_torch_precision.py``, which holds the CPU's to JAX's)."""
     import copy
 
     from tvqvae_tpu_torch.models.maskgit import FrozenStage1, decode_tokens, encode_tokens
@@ -1706,7 +1755,16 @@ def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
     exact = FrozenStage1(copy.deepcopy(f.model).double(), *(
         dataclasses.replace(vq, embed=vq.embed.double()) for vq in (f.vq_l, f.vq_h)))
     x = torch.from_numpy(series[:2])
-    errs = []
+    def bf16_twin(frozen, device):  # the same weights under the JAX sampler's bfloat16 defaults
+        spec = dataclasses.replace(frozen.model.spec, compute_dtype="bfloat16", fast_bn=True,
+                                   bf16_head=True, bf16_istft=True)
+        sd = {**frozen.model.state_dict(),
+              **{f"{band}.{c.name}": getattr(vq, c.name) for band, vq in
+                 (("vq_l", frozen.vq_l), ("vq_h", frozen.vq_h)) for c in dataclasses.fields(vq)}}
+        return FrozenStage1.from_state_dict(spec, sd, device)
+
+    f16, dev16 = bf16_twin(f, "cpu"), bf16_twin(sampler.frozen, "cuda")
+    errs, guards = [], []
     with torch.inference_mode():
         for band in ("lf", "hf"):
             z_dev = sampler.frozen.model.encode(x.cuda(), band).cpu()
@@ -1726,10 +1784,369 @@ def published_width_check(torch, Config, TrainedModelSampler, sampler, series):
                   f"{s_cpu.numel()}; decode vs float64 on the CPU: card {dev_64:.3g}, "
                   f"CPU float32 {cpu_64:.3g}", flush=True)
             errs.append((band, z_err, y_err, dev_64))
+            # bfloat16: the card's gap from its float32 decode against the CPU's
+            g_dev = rel_gap(decode_tokens(dev16, s_dev, band).cpu(), y_dev)
+            g_cpu = rel_gap(decode_tokens(f16, s_dev.cpu(), band), y_cpu)
+            guards.append((band, g_dev, g_cpu))
+            print(f"[reference] published width {band}, bfloat16 decode of the same tokens: card "
+                  f"{g_dev:.3g} of scale from its float32 decode, CPU {g_cpu:.3g} (ratio "
+                  f"{g_dev / g_cpu:.3g}, bound 0.25-4)", flush=True)
+    for band, g_dev, g_cpu in guards:
+        check(0.25 <= g_dev / g_cpu <= 4.0, f"published width {band}: the card's bfloat16 gap "
+                                            f"{g_dev} against the CPU's {g_cpu}")
     for band, z_err, y_err, dev_64 in errs:
         check(z_err <= 1e-4 and y_err <= 5e-4 and dev_64 <= 5e-4,
               f"published width {band}: card vs CPU off by {z_err}, {y_err}; "
               f"card vs float64 {dev_64}")
+
+
+def gumbel_noise(torch, spec, n, rng):
+    """One ``iterative_decoding`` noise dict for a batch of ``n``: Gumbel
+    draws from the numpy generator ``rng``."""
+    noise = {}
+    for band, T, tok, K in (("l", spec.T_l, spec.tokens_l, spec.mask_token_l),
+                            ("h", spec.T_h, spec.tokens_h, spec.mask_token_h)):
+        noise[band] = tuple(torch.from_numpy(
+            -np.log(-np.log(rng.uniform(1e-12, 1.0, size)))).float()
+            for size in ((T, n, tok, K), (T, n, tok)))
+    return noise
+
+
+def rel_gap(a, ref) -> float:
+    """max |a - ref| over max |ref|, of host arrays or tensors."""
+    a, ref = (np.asarray(t.detach().float().cpu()) if hasattr(t, "detach") else np.asarray(t)
+              for t in (a, ref))
+    return float(np.abs(a - ref).max() / np.abs(ref).max())
+
+
+def steps_cost(torch, step, state, x, gen, n=BF16_TIMED_STEPS):
+    """``n`` training steps after one warm-up step: (ms per step by CUDA
+    events, GiB their peak rises above what was allocated before them)."""
+    step(state, x, gen)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step(state, x, gen)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def stage1_twin(torch, state, tx, **spec_kw):
+    """A stage-1 train state on a copy (on the card) of ``state``'s weights,
+    its codebooks, the spec changed by ``spec_kw`` and a fresh optimizer
+    ``tx``: no initialiser draws on the host."""
+    from tvqvae_tpu_torch.models.stage1 import Stage1Model
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state
+
+    with torch.device("meta"):
+        model = Stage1Model(dataclasses.replace(state.model.spec, **spec_kw))
+    model.load_state_dict({k: v.clone() for k, v in state.model.state_dict().items()},
+                          assign=True)
+    return create_stage1_state(model, state.vq_l, state.vq_h, tx)
+
+
+def bf16_phase(torch, vq_kernel, work, sampler, series, rec32, wall_ms, data, frozen, trained,
+               f32, device="cuda"):
+    """The JAX package's production recipe under ``--bf16`` at the published
+    width, counted on its own (``launches_by_path.bf16``): phase 4's seeded
+    weights under the JAX sampler's bfloat16 defaults (``fast_bn``,
+    ``bf16_head``, ``bf16_istft``), its tokens equal to the float32
+    sampler's under the same noise and its series within
+    ``BF16_PUBLISHED`` of their scale, the stages trained in phases 7-8
+    read ``from_checkpoints`` in bfloat16 within 0.06 of phase 8's float32
+    decode of the same tokens, ms per batch and device busy beside the
+    float32 sampler's and beside the same weights in float32 with
+    ``fast_bn`` (the generate and serve CLIs' default; tokens equal, series
+    within 5e-4 of scale), the bfloat16 batch's top device ops, and
+    ``reconstruct`` of 64 series (4 VQ launches); ``train_stage1`` with
+    ``compute_dtype="bfloat16"``, ``fast_bn``, ``bf16_mu``, ``bf16_head``
+    for 20 steps (loss finite and falling, Adam's first moment stored in
+    bfloat16, steady ms per step and memory beside the float32 run's), then
+    ``BF16_TIMED_STEPS`` steps each of the runner's float32 defaults and
+    the train CLI's (float32, ``fast_bn``, ``bf16_mu``) on phase 7's
+    weights and of the production recipe with and without ``remat``, and
+    the device time of a remat step; ``train_stage3`` with a bfloat16
+    stream and ``fast_norm`` for 10 steps (its ms per step and the memory
+    it adds). ``f32``: the float32 runs' numbers. -> the VQ kernel
+    launches."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+    from tvqvae_tpu_torch.models.maskgit import decode_tokens, iterative_decoding
+    from tvqvae_tpu_torch.train.runner import _adamw, train_stage1, train_stage3
+    from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
+    from tvqvae_tpu_torch.utils import convert
+
+    vq_kernel.launch_count = 0
+    laps = [time.perf_counter()]
+    # phase 4's weights in the sampler's own tree layout: no initialiser draws on the host
+    f = sampler.frozen
+    trees = (convert.stage1_to_jax(f.model, f.vq_l, f.vq_h),
+             dict(zip(("params", "h_stats"), convert.prior_to_jax(sampler.t_l, sampler.t_h))))
+
+    def twin(**precision):
+        return TrainedModelSampler(Config(), *trees, input_length=L, in_channels=C,
+                                   n_classes=N_CLASSES, batch_size=B, device=device, **precision)
+
+    s16, s32f = twin(compute_dtype="bfloat16", fast_bn=True), twin(fast_bn=True)
+    build_s = time.perf_counter() - laps[0]
+    sp = s16.s1_spec
+    check((sp.compute_dtype, sp.fast_bn, sp.bf16_head, sp.bf16_istft)
+          == ("bfloat16", True, True, True), f"the bfloat16 sampler's spec: {sp}")
+    check((s32f.s1_spec.compute_dtype, s32f.s1_spec.fast_bn) == ("float32", True),
+          f"the fast_bn sampler's spec: {s32f.s1_spec}")
+    noise = gumbel_noise(torch, s16.mg_spec, B, np.random.default_rng(11))
+    with torch.inference_mode():
+        toks = [iterative_decoding(s.mg_spec, lambda a, c, s=s: s.t_l(a, None, c),
+                                   lambda a, b, c, s=s: s.t_h(a, b, c), B, None, device=device,
+                                   noise=noise) for s in (sampler, s16, s32f)]
+    check(all(torch.equal(a, b) for t in toks[1:] for a, b in zip(toks[0], t)),
+          "the bfloat16 or fast_bn sampler's tokens differ from the float32 sampler's")
+    x32, x16, x32f = (s.sample(B, noise=[noise]) for s in (sampler, s16, s32f))
+    gaps = [rel_gap(a, b) for a, b in zip(x16, x32)]
+    check(all(bool(np.isfinite(a).all()) for a in x16) and 0.0 < max(gaps) <= BF16_PUBLISHED,
+          f"bfloat16 samples off the float32 ones by {gaps} of their scale")
+    f_gaps = [rel_gap(a, b) for a, b in zip(x32f, x32)]
+    check(max(f_gaps) <= 5e-4, f"float32 fast_bn samples off the float32 ones by {f_gaps}")
+    # the stages trained in phases 7-8: the bfloat16 sampler from their checkpoints against
+    # phase 8's float32 stage 1 (read from the same checkpoint) decoding the same tokens
+    laps.append(time.perf_counter())
+    trained16 = TrainedModelSampler.from_checkpoints(Config(), work.stage["1"], work.stage["2"],
+                                                     batch_size=B, device=device,
+                                                     compute_dtype="bfloat16", fast_bn=True)
+    t16 = trained16.sample(B, noise=[noise])
+    with torch.inference_mode():
+        toks = iterative_decoding(trained16.mg_spec, lambda a, c: trained16.t_l(a, None, c),
+                                  lambda a, b, c: trained16.t_h(a, b, c), B, None, device=device,
+                                  noise=noise)
+        t32 = [decode_tokens(frozen, t, band).cpu().numpy() for t, band in zip(toks, ("lf", "hf"))]
+    t_gaps = [rel_gap(a, b) for a, b in zip(t16, (*t32, t32[0] + t32[1]))]
+    check(all(bool(np.isfinite(a).all()) for a in t16) and 0.0 < max(t_gaps) <= BF16_STACK,
+          f"trained bfloat16 samples off the float32 ones by {t_gaps} of their scale")
+    del trained16
+    laps.append(time.perf_counter())
+    ms_by = {}
+    for name, s in (("bfloat16", s16), ("float32 fast_bn", s32f)):
+        s.sample(B, seed=100)  # warm-up, as phase 4's
+        t0 = time.perf_counter()
+        s.sample(4 * B, seed=1)
+        ms_by[name] = 1e3 * (time.perf_counter() - t0) / 4
+    busy = {name: sum(d for _, d in device_events(torch, lambda s=s: s.sample(B, seed=5))[1]) / 1e3
+            for name, s in (("float32", sampler), ("float32 fast_bn", s32f))}
+    busy["bfloat16"] = print_profile(f"bf16 sample of {B}", lambda: s16.sample(B, seed=5),
+                                     ms_by["bfloat16"])
+    print(f"[bf16] sampler at the published width (compute_dtype bfloat16, fast_bn, bf16_head, "
+          f"bf16_istft; phase 4's seeded weights; it and the float32 fast_bn twin built in "
+          f"{build_s:.1f} s); a {B}-batch with the same noise: tokens equal to the float32 "
+          f"sampler's, x_l/x_h/x within {', '.join(f'{g:.3g}' for g in gaps)} of the float32 "
+          f"series' scale (bound {BF16_PUBLISHED}); {ms_by['bfloat16']:.2f} ms per {B}-batch "
+          f"against {wall_ms['sample']:.2f} in float32; device busy {busy['bfloat16']:.2f} ms "
+          f"against {busy['float32']:.2f}; the trained stages from their checkpoints, the same "
+          f"noise: x_l/x_h/x within {', '.join(f'{g:.3g}' for g in t_gaps)} of the float32 "
+          f"series' scale (bound {BF16_STACK})", flush=True)
+    print(f"[bf16] the same weights in float32 with fast_bn (the generate and serve CLIs' "
+          f"default): tokens equal, x_l/x_h/x within {', '.join(f'{g:.3g}' for g in f_gaps)} of "
+          f"scale (bound 5e-4); {ms_by['float32 fast_bn']:.2f} ms per {B}-batch against "
+          f"{wall_ms['sample']:.2f}; device busy {busy['float32 fast_bn']:.2f} ms against "
+          f"{busy['float32']:.2f}", flush=True)
+    del s32f
+
+    before = vq_kernel.launch_count
+    t0 = time.perf_counter()
+    rec16 = s16.reconstruct(series)
+    rec_ms = 1e3 * (time.perf_counter() - t0)
+    check(vq_kernel.launch_count - before == 4 and rec16.shape == series.shape
+          and bool(np.isfinite(rec16).all()),
+          f"bfloat16 reconstruct: {vq_kernel.launch_count - before} VQ launches, not 4")
+    print(f"[bf16] reconstruct of {2 * B} series: {rec_ms:.1f} ms against "
+          f"{2 * wall_ms['reconstruct']:.1f} in float32, 4 VQ launches (float32 latents from the "
+          f"bfloat16 encoders); {rel_gap(rec16, rec32):.3g} of scale from the float32 round trip "
+          f"(a token that flips at a near-tie moves its series)", flush=True)
+    del s16
+
+    laps.append(time.perf_counter())
+    cfg = Config()
+    rec = StepRecorder(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = vq_kernel.launch_count
+    t0 = time.perf_counter()
+    state = train_stage1(cfg, data, max_steps=BF16_TRAIN_STEPS, device=device, logger=rec,
+                         log_interval=1, **PRODUCTION)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    added = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launches = vq_kernel.launch_count - before
+    n_test = len(data.X_test)
+    val_batches = -(-n_test // min(cfg.dataset.batch_sizes["stage1"], n_test))
+    expected = 2 * BF16_TRAIN_STEPS + 2 * val_batches
+    check(launches == expected, f"bfloat16 train_stage1: {launches} VQ launches, not {expected}")
+    losses = [float(v) for v in rec.losses]
+    check(len(losses) == BF16_TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          f"bfloat16 train_stage1 losses {losses}")
+    warm = int(BF16_TRAIN_STEPS * cfg.exp_params.linear_warmup_rate)
+    first, last = float(np.mean(losses[warm:warm + 5])), float(np.mean(losses[-5:]))
+    check(last < first, f"bfloat16 stage-1 loss did not fall: {first} then {last}")
+    moments = list(state.optimizer.state.values())
+    check(len(moments) == len(list(state.model.parameters()))
+          and all(m["exp_avg"].dtype == torch.bfloat16 and m["exp_avg_sq"].dtype == torch.float32
+                  for m in moments), "Adam's first moment is not stored in bfloat16")
+    ms = rec.events[warm].elapsed_time(rec.events[-1]) / (BF16_TRAIN_STEPS - 1 - warm)
+    mu_gb = sum(m["exp_avg"].numel() * 2 for m in moments) / 2 ** 30
+    print(f"[bf16] train_stage1 at the published width with the production recipe "
+          f"({', '.join(f'{k}={v}' for k, v in PRODUCTION.items())}): {BF16_TRAIN_STEPS} steps in "
+          f"{wall:.1f} s (with init and validation); steady {ms:.2f} ms/step against "
+          f"{f32['train_ms']:.2f} in float32 (CUDA events, steps {warm + 2}-{BF16_TRAIN_STEPS}); "
+          f"{added:.2f} GiB above what was allocated before, against {f32['train_gb']:.2f}; loss "
+          f"step 1 {losses[0]:.4f}, mean of steps {warm + 1}-{warm + 5} {first:.4f}, of the last 5 "
+          f"{last:.4f}; Adam's first moment in bfloat16 ({len(moments)} tensors, {mu_gb:.3f} GiB), "
+          f"the second in float32; VQ launches {launches}", flush=True)
+
+    # a few steps of each recipe on one batch, each on weights copied on the card
+    laps.append(time.perf_counter())
+    x = torch.from_numpy(data.X_train[:B]).to(device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    step = make_stage1_train_step()
+    tx = _adamw(cfg, BF16_TRAIN_STEPS)
+    tx_mu = _adamw(cfg, BF16_TRAIN_STEPS, bf16_mu=True)
+    cost = {}
+    for name, base_state, t, kw in (
+            ("float32, the runner's defaults", trained, tx, {}),
+            ("float32, the train CLI's defaults (fast_bn, bf16_mu)", trained, tx_mu,
+             dict(fast_bn=True, bf16_head=True)),
+            ("the production recipe", state, None, {}),
+            ("the production recipe with remat", state, tx_mu, dict(remat=True))):
+        st = state if t is None else stage1_twin(torch, base_state, t, **kw)
+        cost[name] = steps_cost(torch, step, st, x, gen)
+        check(all(np.isfinite(v) for v in cost[name]), f"{name}: steps not measured")
+        if kw.get("remat"):
+            print_profile(f"bf16 remat train step of {B}", lambda: step(st, x, gen),
+                          cost[name][0], n_convs=0)
+        del st
+    print(f"[bf16] published-width stage-1 steps on one batch ({BF16_TIMED_STEPS} after a "
+          f"warm-up, CUDA events; ms/step, GiB the peak rises above what was allocated before): "
+          + "; ".join(f"{n} {c[0]:.2f} ms, {c[1]:.2f} GiB" for n, c in cost.items()), flush=True)
+    print_profile(f"bf16 train step of {B}", lambda: step(state, x, gen),
+                  cost["the production recipe"][0], n_convs=0)
+    del state
+
+    laps.append(time.perf_counter())
+    rec3 = StepRecorder(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = vq_kernel.launch_count
+    st3 = train_stage3(cfg, data, frozen, max_steps=BF16_STAGE3_STEPS, device=device, logger=rec3,
+                       log_interval=1, compute_dtype="bfloat16", fast_norm=True, bf16_mu=True)
+    torch.cuda.synchronize()
+    added3 = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    launches3 = vq_kernel.launch_count - before
+    check(launches3 == 2 * -(-len(data.X_train) // XPRIME_BATCH),
+          f"bfloat16 train_stage3: {launches3} VQ launches")
+    losses3 = [float(v) for v in rec3.losses]
+    check(len(losses3) == BF16_STAGE3_STEPS and bool(np.isfinite(losses3).all()),
+          f"bfloat16 stage-3 losses {losses3}")
+    unet = st3.fe.Unet1D_0
+    check(getattr(unet, unet.stem).compute_dtype == torch.bfloat16, "the enhancer is not bfloat16")
+    w = 3
+    ms3 = rec3.events[w].elapsed_time(rec3.events[-1]) / (BF16_STAGE3_STEPS - 1 - w)
+    print(f"[bf16] train_stage3 at the published width, the stream in bfloat16 with fast_norm and "
+          f"bf16_mu: {BF16_STAGE3_STEPS} steps, steady {ms3:.3f} ms/step against "
+          f"{f32['stage3_ms']:.3f} in float32 (steps {w + 2}-{BF16_STAGE3_STEPS}); "
+          f"{added3:.3f} GiB above what was allocated before (the x' sweep's {launches3} VQ "
+          f"launches included) against {f32['stage3_gb']:.3f}; loss step 1 {losses3[0]:.4f}, step "
+          f"{BF16_STAGE3_STEPS} {losses3[-1]:.4f}", flush=True)
+    laps.append(time.perf_counter())
+    print("[bf16] seconds by part: " + ", ".join(
+        f"{name} {b - a:.1f}" for name, a, b in zip(
+            ("samplers", "trained samplers", "timing and reconstruct", "train_stage1",
+             "step comparison", "train_stage3"), laps, laps[1:])), flush=True)
+    return vq_kernel.launch_count
+
+
+def small_bf16_check(torch, devices=("cpu", "cuda")):
+    """The same seeded small models in bfloat16 on the CPU (plain versions)
+    and on the card (kernel): a sampler with the JAX sampler's bfloat16
+    defaults, same noise: series within 0.06 of their scale; one stage-1
+    step with the production recipe: loss within 2e-2 relative (the VQ
+    indices may flip at bfloat16 near-ties; the count is printed); one
+    enhancer step (bfloat16 stream, fast_norm, dropout 0): loss within 2e-2
+    relative and each gradient within 5e-2 of its scale plus twice the CPU's
+    own bfloat16-vs-float32 gap on that leaf, the median within 5e-2 (the
+    bounds of ``tests/test_torch_precision_paths.py``)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.train.runner import _adamw
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+    from tvqvae_tpu_torch.train.stage3 import (
+        create_stage3_state,
+        init_stage3,
+        make_stage3_train_step_pre,
+    )
+
+    cfg = Config.from_dict({**SMALL_CFG,
+                            "encoder": {**SMALL_CFG["encoder"], "dropout": 0.0},
+                            "decoder": {**SMALL_CFG["decoder"], "dropout": 0.0},
+                            "fidelity_enhancer": {**SMALL_CFG["fidelity_enhancer"],
+                                                  "dropout": 0.0}})
+    Ls, n = 127, 6
+    samplers = [TrainedModelSampler.from_init(cfg, Ls, C, 3, seed=3, device=d, batch_size=n,
+                                              compute_dtype="bfloat16", fast_bn=True)
+                for d in devices]
+    noise = gumbel_noise(torch, samplers[0].mg_spec, n, np.random.default_rng(6))
+    ref, dut = (s.sample(n, "conditional", class_index=1, noise=[noise]) for s in samplers)
+    x_gaps = [rel_gap(a, b) for a, b in zip(dut, ref)]
+    check(max(x_gaps) <= BF16_STACK, f"small bfloat16 sampler: card vs CPU {x_gaps} of scale")
+
+    xs = np.random.default_rng(9).normal(size=(n, C, Ls)).astype(np.float32)
+    spec = Stage1Spec.from_config(cfg, Ls, C, **{k: v for k, v in PRODUCTION.items()
+                                                  if k != "bf16_mu"})
+    s1 = []
+    for dev in devices:
+        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
+        st = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, SMALL_STEPS, bf16_mu=True))
+        seen = []
+        model.register_forward_hook(lambda m, i, o, seen=seen: seen.append(
+            (o.vq_l.indices.cpu(), o.vq_h.indices.cpu())))
+        s1.append((make_stage1_train_step()(st, torch.from_numpy(xs).to(dev))[1]["loss"].item(),
+                   seen[0]))
+    s1_err = abs(s1[1][0] - s1[0][0]) / abs(s1[0][0])
+    flips = sum(int((a != b).sum()) for a, b in zip(s1[0][1], s1[1][1]))
+    check(s1_err <= 2e-2, f"small bfloat16 stage-1 step: card vs CPU loss off by {s1_err}")
+
+    xp = (0.8 * xs + 0.3 * np.random.default_rng(10).normal(size=xs.shape)).astype(np.float32)
+    grads = {}
+    for dev, dt in ((devices[0], "float32"), *((d, "bfloat16") for d in devices)):
+        fe = init_stage3(FidelityEnhancer.from_config(cfg, Ls, C, dt, fast_norm=True),
+                         torch.Generator().manual_seed(4), dev)
+        st = create_stage3_state(fe, _adamw(cfg, SMALL_STEPS, bf16_mu=True))
+        loss = make_stage3_train_step_pre()(st, torch.from_numpy(xs).to(dev),
+                                            torch.from_numpy(xp).to(dev))[1]["loss"].item()
+        grads[(dev, dt)] = loss, {k: p.grad.cpu() for k, p in fe.named_parameters()}
+    (l32, g32), (lr, gr), (ld, gd) = (grads[k] for k in ((devices[0], "float32"),
+                                                         (devices[0], "bfloat16"),
+                                                         (devices[1], "bfloat16")))
+    fe_err = abs(ld - lr) / abs(lr)
+    check(fe_err <= 2e-2, f"small bfloat16 enhancer step: card vs CPU loss off by {fe_err}")
+    gaps = {k: (rel_gap(gd[k], gr[k]), rel_gap(gr[k], g32[k])) for k in gr}
+    bad = {k: v for k, v in gaps.items() if v[0] > 5e-2 + 2 * v[1]}
+    med = float(np.median([v[0] for v in gaps.values()]))
+    check(not bad and med <= 5e-2, f"small bfloat16 enhancer gradients: card vs CPU {bad}, "
+                                   f"median {med}")
+    worst = max(gaps, key=lambda k: gaps[k][0])
+    print(f"[bf16] small model card vs CPU, both bfloat16: samples within "
+          f"{', '.join(f'{g:.3g}' for g in x_gaps)} of scale (bound {BF16_STACK}); a stage-1 step "
+          f"with the production recipe: loss {s1[1][0]:.6f} vs {s1[0][0]:.6f}, rel err "
+          f"{s1_err:.3g} (bound 2e-2), {flips} VQ indices of {sum(a.numel() for a in s1[0][1])} "
+          f"flipped; an enhancer step: loss rel err {fe_err:.3g}, gradients median {med:.3g}, "
+          f"worst {gaps[worst][0]:.3g} ({worst}, whose CPU bfloat16 gradient is "
+          f"{gaps[worst][1]:.3g} from the float32 one)", flush=True)
 
 
 def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda")):
@@ -1744,12 +2161,7 @@ def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda"
                 for d in devices)
     spec = ref.mg_spec
     rng = np.random.default_rng(5)
-    noise = {}
-    for band, T, tok, K in (("l", spec.T_l, spec.tokens_l, spec.mask_token_l),
-                            ("h", spec.T_h, spec.tokens_h, spec.mask_token_h)):
-        noise[band] = tuple(torch.from_numpy(
-            -np.log(-np.log(rng.uniform(1e-12, 1.0, size)))).float()
-            for size in ((T, n, tok, K), (T, n, tok)))
+    noise = gumbel_noise(torch, spec, n, rng)
     x_ref, x_dut = (s.sample(n, "conditional", class_index=1, noise=[noise])[2] for s in (ref, dut))
     err = float(np.abs(x_dut - x_ref).max())
     check(err <= 1e-4, f"small model: card vs CPU sample off by {err}")
@@ -1869,17 +2281,22 @@ def smoke(torch, work, t_start):
     lap("serve")
 
     # ---- training, counted on its own, each stage written to disk -----
-    trained, data, step_ms, train_launches = train_phase(torch, vq_kernel, work)
+    trained, data, step_ms, train_launches, train_gb = train_phase(torch, vq_kernel, work)
     lap("train")
     metrics = eval_metrics(torch, data)  # scores the validations of stages 2-3
     frozen, stage2, stage2_ms, stage2_launches = stage2_phase(torch, vq_kernel, work, data, metrics)
     lap("stage2")
-    stage3, stage3_ms, stage3_launches = stage3_phase(torch, vq_kernel, work, frozen, data, metrics)
+    stage3, stage3_ms, stage3_launches, stage3_gb = stage3_phase(torch, vq_kernel, work, frozen,
+                                                                 data, metrics)
     lap("stage3")
     fcn, fcn_ms = fcn_phase(torch, work, data)
     lap("fcn")
     eval_launches, rocket_ms = eval_phase(torch, vq_kernel, work, data, metrics)
     lap("eval")
+    bf16_launches = bf16_phase(torch, vq_kernel, work, sampler, series, rec, wall_ms, data,
+                               frozen, trained, dict(train_ms=step_ms, train_gb=train_gb,
+                                            stage3_ms=stage3_ms, stage3_gb=stage3_gb))
+    lap("bf16")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -1901,6 +2318,7 @@ def smoke(torch, work, t_start):
         small_stage3_check(torch)
         published_fe_check(torch, series)
         small_fcn_check(torch)
+        small_bf16_check(torch)
         small_resume_check(torch, work)
         lap("untimed checks")
         check_generated(*generating, work)
@@ -1950,10 +2368,11 @@ def smoke(torch, work, t_start):
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
-                     + eval_launches + ckpt_launches),
+                     + eval_launches + bf16_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
-                             "eval": eval_launches, "ckpt": ckpt_launches},
+                             "eval": eval_launches, "bf16": bf16_launches,
+                             "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

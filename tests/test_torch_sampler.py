@@ -226,11 +226,13 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
     {"ess": True},
 ])
 def test_unported_options_raise(world, fe_world, kw):
-    """bfloat16 decoding and ESS are not ported and raise
-    ``NotImplementedError``. The fidelity enhancer is: a well-formed stage3
-    tree builds (and stays off unless asked for), and
-    ``use_fidelity_enhancer`` without one raises ``ValueError``, as the JAX
-    sampler does."""
+    """ESS is not ported and raises ``NotImplementedError``. The fidelity
+    enhancer is: a well-formed stage3 tree builds (and stays off unless asked
+    for), and ``use_fidelity_enhancer`` without one raises ``ValueError``, as
+    the JAX sampler does. bfloat16 decoding is ported: the sampler builds
+    with the JAX sampler's bfloat16 defaults (``bf16_head``, ``bf16_istft``)
+    in its stage-1 spec and its enhancer's stream
+    (``tests/test_torch_precision_paths.py`` holds it against JAX)."""
     cfg_dict = dict(CFG)
     if kw.pop("ess", False):
         cfg_dict["MaskGIT"] = {**CFG["MaskGIT"], "ESS": {"use": True}}
@@ -239,6 +241,17 @@ def test_unported_options_raise(world, fe_world, kw):
                                 in_channels=C, n_classes=N_CLASSES, device="cpu",
                                 stage3=fe_world["stage3"])
         assert s.fe is not None and not s.use_fe
+        return
+    if kw.get("compute_dtype") == "bfloat16":
+        s = TrainedModelSampler(Config.from_dict(cfg_dict), *_trees(world), input_length=L,
+                                in_channels=C, n_classes=N_CLASSES, device="cpu",
+                                stage3=fe_world["stage3"], **kw)
+        spec = s.frozen.model.spec
+        assert (spec.compute_dtype, spec.bf16_head, spec.bf16_istft) == ("bfloat16", True, True)
+        assert s.fe.Unet1D_0.stem and getattr(s.fe.Unet1D_0, s.fe.Unet1D_0.stem).compute_dtype \
+            == torch.bfloat16
+        x = s.sample(2, "conditional", class_index=0, seed=1)[2]
+        assert x.dtype == np.float32 and np.isfinite(x).all()
         return
     error = ValueError if kw.get("use_fidelity_enhancer") else NotImplementedError
     with pytest.raises(error):

@@ -7,8 +7,10 @@ schema at the small shapes of ``tests/test_torch_sampler.py``: ``train
 FCN; ``train_fcn`` writes its checkpoint; ``generate`` writes finite
 ``.npz`` files in original units (raw and enhanced); the service ``serve``
 builds answers a request through ``make_server``. Every JAX option the port
-does not run is refused by name, the JAX defaults the port cannot run are
-not its defaults, and a JAX ``train`` command line parses.
+does not run is refused by name; every precision flag of the JAX CLIs
+reaches the runners or the sampler with its value; the train CLI's defaults
+are the JAX train CLI's but ``--bundle_steps``; and a JAX ``train`` command
+line parses.
 """
 
 import functools
@@ -23,6 +25,7 @@ import torch
 from test_torch_sampler import CFG, C, L, N_CLASSES
 from tvqvae_tpu.scripts import train as jtrain
 from tvqvae_tpu_torch.data import make_synthetic_trajectories, save_npz
+from tvqvae_tpu_torch.generation import TrainedModelSampler
 from tvqvae_tpu_torch.scripts import generate, serve, train, train_fcn
 from tvqvae_tpu_torch.serving import make_server
 from tvqvae_tpu_torch.train import runner
@@ -134,12 +137,8 @@ def test_serve_builds_a_service_that_answers(trained):
 
 
 UNPORTED = [
-    (train, ["--bf16"]), (train, ["--bundle_steps", "10"]),
-    (train, ["--remat"]), (train, ["--fast_bn"]), (train, ["--bf16_mu"]), (train, ["--bf16_nu"]),
-    (train, ["--bf16_head"]), (train, ["--bf16_istft"]), (train, ["--rbg_rng"]),
-    (train, ["--no_precompute"]), (train, ["--host_data"]), (train, ["--tp", "2"]),
-    (generate, ["--bf16"]), (generate, ["--fast_bn"]),
-    (serve, ["--bf16"]), (serve, ["--fast_bn"]), (serve, ["--data_parallel"]),
+    (train, ["--bundle_steps", "10"]), (train, ["--rbg_rng"]), (train, ["--no_precompute"]),
+    (train, ["--host_data"]), (train, ["--tp", "2"]), (serve, ["--data_parallel"]),
 ]
 
 
@@ -153,16 +152,93 @@ def test_unported_flag_is_refused(script, flag, capsys):
     assert "not ported yet" in err and flag[0] in err
 
 
+_STAGES = ("train_stage1", "train_stage2", "train_stage3")
+# each precision flag of the JAX CLIs -> where its value lands: {runner or sampler: {kwarg: value}}
+PRECISION = [
+    (train, "--bf16", {"train_stage1": {"compute_dtype": "bfloat16"},
+                       "train_stage3": {"compute_dtype": "bfloat16"}}),
+    (train, "--remat", {"train_stage1": {"remat": True}}),
+    (train, "--fast_bn", {"train_stage1": {"fast_bn": True}, "train_stage3": {"fast_norm": True}}),
+    (train, "--bf16_mu", {s: {"bf16_mu": True} for s in _STAGES}),
+    (train, "--bf16_nu", {s: {"bf16_nu": True} for s in _STAGES}),
+    (train, "--bf16_head", {"train_stage1": {"bf16_head": True}}),
+    (train, "--bf16_istft", {"train_stage1": {"bf16_istft": True}}),
+    (generate, "--bf16", {"from_checkpoints": {"compute_dtype": "bfloat16"}}),
+    (generate, "--fast_bn", {"from_checkpoints": {"fast_bn": True}}),
+    (serve, "--bf16", {"from_checkpoints": {"compute_dtype": "bfloat16"}}),
+    (serve, "--fast_bn", {"from_checkpoints": {"fast_bn": True}}),
+]
+
+
+class _Stop(Exception):
+    pass
+
+
+def _cli_calls(script, argv, common, monkeypatch):
+    """Run ``script`` with ``argv`` and the runners (train) or the sampler's
+    ``from_checkpoints`` (generate, serve) replaced by recorders -> {name:
+    the keyword arguments it got}."""
+    calls = {}
+
+    def recorder(name, stop=False):
+        def record(*args, **kw):
+            calls[name] = kw
+            if stop:
+                raise _Stop
+            return None
+        return record
+
+    if script is train:
+        for name in _STAGES:
+            monkeypatch.setattr(runner, name, recorder(name))
+        monkeypatch.setattr(runner, "load_stage1_bundle", lambda *a, **k: (None, None, None))
+        train.main([*common, "--stage", "all", "--no_val_metrics", *argv])
+    else:
+        monkeypatch.setattr(TrainedModelSampler, "from_checkpoints",
+                            recorder("from_checkpoints", stop=True))
+        with pytest.raises(_Stop):
+            if script is serve:
+                serve.build_service(serve.build_argparser().parse_args([*common, *argv]))
+            else:
+                generate.main([*common, *argv])
+    return calls
+
+
+@pytest.mark.parametrize("script, flag, lands", PRECISION,
+                         ids=[f"{s.__name__.rsplit('.', 1)[1]}{f}" for s, f, _ in PRECISION])
+def test_precision_flag_reaches_the_runner(trained, tmp_path, monkeypatch, script, flag, lands):
+    """The flag is accepted and its value reaches every runner (or the
+    sampler) the JAX CLI hands it to; ``--no-<flag>`` hands over the opposite."""
+    _, common = trained
+    if script is train:
+        common = [*common, "--run_dir", str(tmp_path / "runs")]
+    calls = _cli_calls(script, [flag], common, monkeypatch)
+    for name, kw in lands.items():
+        for k, v in kw.items():
+            assert calls[name][k] == v, (name, k)
+    if isinstance(next(iter(next(iter(lands.values())).values())), bool) and flag != "--remat":
+        calls = _cli_calls(script, ["--no-" + flag[2:]], common, monkeypatch)
+        for name, kw in lands.items():
+            for k in kw:
+                assert calls[name][k] is False, (name, k)
+
+
 def test_jax_defaults_the_port_cannot_run_are_not_its_defaults():
-    j = jtrain.build_argparser().parse_args(["--dataset_file", "d.npz"])
-    p = train.build_argparser().parse_args(["--dataset_file", "d.npz"])
-    assert (j.bundle_steps, j.fast_bn, j.bf16_mu, j.bf16_head) == (10, True, True, True)
-    assert (p.bundle_steps, p.fast_bn, p.bf16_mu, p.bf16_nu, p.bf16_head, p.bf16_istft) == (
-        1, False, False, False, False, False)
-    assert p.device == "cuda" and p.tp == 1
+    """Every flag the two train parsers share defaults as the JAX CLI's does,
+    but ``--bundle_steps`` (step bundles are not ported: 1, not 10); the
+    generate and serve CLIs default to ``--fast_bn``, as the JAX ones do."""
+    j = vars(jtrain.build_argparser().parse_args(["--dataset_file", "d.npz"]))
+    p = vars(train.build_argparser().parse_args(["--dataset_file", "d.npz"]))
+    shared = set(j) & set(p)
+    assert {"fast_bn", "bf16_mu", "bf16_nu", "bf16_head", "bf16_istft", "bf16", "remat"} <= shared
+    same = shared - {"bundle_steps"}
+    assert {k: p[k] for k in same} == {k: j[k] for k in same}
+    assert (j["bundle_steps"], p["bundle_steps"]) == (10, 1)
+    assert (p["fast_bn"], p["bf16_mu"], p["bf16_head"]) == (True, True, True)
+    assert p["device"] == "cuda" and p["tp"] == 1
     for script in (generate, serve):
         args = script.build_argparser().parse_args(["--dataset_file", "d.npz"])
-        assert args.fast_bn is False and args.bf16 is False and args.device == "cuda"
+        assert args.fast_bn is True and args.bf16 is False and args.device == "cuda"
 
 
 def test_a_jax_train_command_line_parses():

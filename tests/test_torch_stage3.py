@@ -70,6 +70,16 @@ S1_CFG = {
 FE_CFG = {"dim": 8, "dim_mults": list(MULTS), "resnet_block_groups": GROUPS}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """These shapes run as fast on one thread, and then the suite's parallel
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomize(tree, rng):
     """Random values where flax's init leaves a constant: biases, norm
     scales (GroupNorm ``scale``, ChanLayerNorm ``g``). -> a numpy tree."""
@@ -211,10 +221,18 @@ def test_published_width_enhancer_matches_flax(fe_draws):
 
 
 def test_unported_enhancer_options_raise():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tfe.FidelityEnhancer(L, C, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="fast_norm"):
-        tfe.FidelityEnhancer(L, C, fast_norm=True)
+    """The enhancer's reduced-precision options are ported: the stream's
+    convs compute in bfloat16, the GroupNorms take the fast path, and the
+    output is float32 (``tests/test_torch_precision.py`` holds both against
+    JAX)."""
+    fe = tfe.FidelityEnhancer(L, C, compute_dtype="bfloat16", fast_norm=True)
+    unet = fe.Unet1D_0
+    assert getattr(unet, unet.stem).compute_dtype == torch.bfloat16
+    assert all(m.fast for m in fe.modules() if isinstance(m, torch.nn.GroupNorm))
+    with torch.no_grad():
+        assert fe(torch.from_numpy(_x((2, C, L), 0))).dtype == torch.float32
+    with pytest.raises(ValueError, match="floating-point"):
+        tfe.FidelityEnhancer(L, C, compute_dtype="int8")
 
 
 # ---------------------------------------------------------------------------
@@ -550,9 +568,23 @@ def test_train_stage3_paths_agree(tiny):
     {"bf16_nu": True}, {"tp": 2},
 ])
 def test_train_stage3_refuses_unported_options(tiny, flag):
+    """Step bundles and tensor parallelism raise; the precision options run,
+    and reach the enhancer or its optimizer."""
     data, frozen = tiny
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
+    (name, value), = flag.items()
+    if name in ("bundle_steps", "tp"):
+        with pytest.raises(NotImplementedError, match=name):
+            runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
+        return
+    state = runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
+    assert state.step == 2
+    unet, opt = state.fe.Unet1D_0, state.optimizer
+    moments = next(iter(opt.state.values()))
+    got = {"compute_dtype": getattr(unet, unet.stem).compute_dtype == torch.bfloat16,
+           "fast_norm": all(m.fast for m in unet.modules() if isinstance(m, torch.nn.GroupNorm)),
+           "bf16_mu": moments["exp_avg"].dtype == torch.bfloat16,
+           "bf16_nu": moments["exp_avg_sq"].dtype == torch.bfloat16}
+    assert got[name] and sum(got.values()) == 1
 
 
 def test_train_stage3_refuses_cuda_without_a_card(tiny, monkeypatch):

@@ -1,7 +1,7 @@
 """Trained-model sampler: weights -> batched generation and reconstruction.
 
-Port of ``tvqvae_tpu/generation/sampler.py::TrainedModelSampler``, float32.
-Per batch, ``sample`` runs MaskGIT decoding of both token grids, the
+Port of ``tvqvae_tpu/generation/sampler.py::TrainedModelSampler``. Per
+batch, ``sample`` runs MaskGIT decoding of both token grids, the
 codebook lookup, the frozen stage-1 decoders and the LF+HF sum
 (``train/stage2.make_sampling_fn``); ``reconstruct`` runs the stage-1 round
 trip, whose argmax quantization launches the VQ kernel once per band.
@@ -19,7 +19,13 @@ one), is what the evaluation's ``FID_svq`` round trip uses.
 sampler reads its Orbax ones (``tools/export_jax_ckpt.py`` converts those);
 ``from_init`` builds seeded random weights instead.
 ``search_optimal_tau`` is the FID-matching search for that temperature.
-bfloat16 decoding and the ESS sampler are not ported yet and raise
+
+The three constructors take the JAX sampler's precision options:
+``compute_dtype`` (``"bfloat16"``: the frozen stage-1 stacks and the
+enhancer's stream), ``fast_bn`` (stage 1's fast BatchNorm and the enhancer's
+fast GroupNorm), and ``bf16_head`` and ``bf16_istft``, on by default and
+inert at float32, as in JAX. The priors stay float32, so the sampled tokens
+do not depend on them. The ESS sampler is not ported and raises
 ``NotImplementedError``.
 """
 
@@ -61,21 +67,24 @@ class TrainedModelSampler:
         use_fidelity_enhancer: bool = False,
         batch_size: int = 32,
         compute_dtype: str = "float32",
+        fast_bn: bool = False,
+        bf16_head: bool = True,
+        bf16_istft: bool = True,
         device="cuda",
     ):
         if use_fidelity_enhancer and stage3 is None:
             raise ValueError("use_fidelity_enhancer=True needs a stage3 tree")
-        if compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r}: only float32 is ported")
         if cfg.maskgit.ess_use:
             raise NotImplementedError("the ESS sampler is not ported yet")
         dev = resolve_device(device)
-        spec = Stage1Spec.from_config(cfg, input_length, in_channels)
+        spec = Stage1Spec.from_config(cfg, input_length, in_channels, compute_dtype=compute_dtype,
+                                      fast_bn=fast_bn, bf16_head=bf16_head, bf16_istft=bf16_istft)
         frozen = FrozenStage1.from_state_dict(spec, stage1_from_jax(stage1), dev)
         t_l, t_h = priors_from_tree(cfg, spec, n_classes, stage2)
         fe = None
         if stage3 is not None:
-            fe = FidelityEnhancer.from_config(cfg, input_length, in_channels)
+            fe = FidelityEnhancer.from_config(cfg, input_length, in_channels, compute_dtype,
+                                              fast_bn)
             fe.load_state_dict(fe_from_jax(stage3["params"]))
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
                        use_fidelity_enhancer)
@@ -85,11 +94,13 @@ class TrainedModelSampler:
     @classmethod
     def from_checkpoints(cls, cfg: Config, stage1_ckpt: str, stage2_ckpt: str,
                          stage3_ckpt: Optional[str] = None, use_fidelity_enhancer: bool = False,
-                         batch_size: int = 32, device="cuda") -> "TrainedModelSampler":
+                         batch_size: int = 32, device="cuda", compute_dtype: str = "float32",
+                         fast_bn: bool = False, bf16_head: bool = True,
+                         bf16_istft: bool = True) -> "TrainedModelSampler":
         """A sampler from stage checkpoints (``utils/checkpoint.py``), as the
         JAX sampler is built: the geometry (``input_length``,
         ``in_channels``, ``n_classes``) from the stage-1 meta, everything
-        else from ``cfg``."""
+        else from ``cfg`` and the precision options."""
         if use_fidelity_enhancer and stage3_ckpt is None:
             raise ValueError("use_fidelity_enhancer=True needs stage3_ckpt")
         tree1, meta = load_checkpoint(stage1_ckpt)
@@ -98,24 +109,29 @@ class TrainedModelSampler:
         return cls(cfg, tree1, tree2, input_length=int(meta["input_length"]),
                    in_channels=int(meta["in_channels"]), n_classes=int(meta["n_classes"]),
                    stage3=tree3, use_fidelity_enhancer=use_fidelity_enhancer,
-                   batch_size=batch_size, device=device)
+                   batch_size=batch_size, compute_dtype=compute_dtype, fast_bn=fast_bn,
+                   bf16_head=bf16_head, bf16_istft=bf16_istft, device=device)
 
     @classmethod
     def from_init(cls, cfg: Config, input_length: int, in_channels: int,
                   n_classes: int, seed: int = 0, device="cuda",
-                  batch_size: int = 32, use_fidelity_enhancer: bool = False
-                  ) -> "TrainedModelSampler":
+                  batch_size: int = 32, use_fidelity_enhancer: bool = False,
+                  compute_dtype: str = "float32", fast_bn: bool = False,
+                  bf16_head: bool = True, bf16_istft: bool = True) -> "TrainedModelSampler":
         """A sampler with seeded random weights at ``cfg``'s shapes: every
         draw comes from one CPU generator, so a seed gives the same weights
-        on every device. With ``use_fidelity_enhancer`` the enhancer's
-        weights are drawn after the priors' and it refines every sample."""
+        on every device and at every precision. With
+        ``use_fidelity_enhancer`` the enhancer's weights are drawn after the
+        priors' and it refines every sample."""
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
-        spec = Stage1Spec.from_config(cfg, input_length, in_channels)
+        spec = Stage1Spec.from_config(cfg, input_length, in_channels, compute_dtype=compute_dtype,
+                                      fast_bn=fast_bn, bf16_head=bf16_head, bf16_istft=bf16_istft)
         model, vq_l, vq_h = init_stage1(spec, g, dev)
         frozen = FrozenStage1(model.eval(), vq_l, vq_h)
         t_l, t_h = init_stage2(*build_transformers(cfg, spec, n_classes), g, dev)
-        fe = (init_stage3(FidelityEnhancer.from_config(cfg, input_length, in_channels), g, dev)
+        fe = (init_stage3(FidelityEnhancer.from_config(cfg, input_length, in_channels,
+                                                       compute_dtype, fast_bn), g, dev)
               if use_fidelity_enhancer else None)
         self = cls.__new__(cls)
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,

@@ -1,7 +1,7 @@
 """Fidelity enhancer: a 1-D U-Net refining sampled trajectories.
 
-Port of ``tvqvae_tpu/models/fidelity_enhancer.py``, float32, channel-first
-(B, C, L) throughout; the JAX package runs the U-Net channels-last. Module
+Port of ``tvqvae_tpu/models/fidelity_enhancer.py``, channel-first (B, C, L)
+throughout; the JAX package runs the U-Net channels-last. Module
 names are the flax tree's, so ``utils/convert.py::fe_from_jax`` renames and
 transposes leaf by leaf:
 
@@ -16,11 +16,20 @@ transposes leaf by leaf:
     changes, the 1x1 skip ``Conv_0``.
 
 ``WSConv1d`` standardises its kernel inside the forward (biased variance
-over taps and input channels, eps 1e-5), so the gradient flows through the
+over taps and input channels), so the gradient flows through the
 standardisation as in JAX. Dropout (inverted, ``layers.dropout``) follows
 each ``UnetBlock`` in train mode only, with masks from the caller's
-``torch.Generator``. The reduced-precision options of the JAX module
-(``compute_dtype="bfloat16"``, ``fast_norm``) are not ported.
+``torch.Generator``.
+
+``compute_dtype`` is the U-Net stream's dtype, as in JAX: the convs of the
+stem, the blocks, the down and up paths compute in it (float32 parameters
+cast at each call), ``WSConv1d`` standardises in float32 with eps 1e-5 at
+float32 and 1e-3 otherwise, ``ChanLayerNorm`` reduces in float32 and
+returns its input's dtype (eps keyed the same way), the GroupNorms run
+flax's float32 sandwich or, with ``fast_norm``, ``layers.GroupNorm``'s
+fast path; the attentions compute in float32 on the rounded stream (flax
+promotes their bfloat16 input against float32 parameters) and add back in
+the stream's dtype; the output head is float32, and so is the output.
 """
 
 from typing import List, Optional, Sequence
@@ -28,65 +37,86 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from tvqvae_tpu_torch.models.layers import Snake, dropout
+from tvqvae_tpu_torch.models.layers import (
+    Conv1d,
+    GroupNorm,
+    Snake,
+    cast_dtype,
+    cast_to,
+    dropout,
+    normalize,
+    stats_dtype,
+)
 from tvqvae_tpu_torch.ops.interp import interp_linear, interp_nearest
 
 ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
 
 
-class WSConv1d(nn.Conv1d):
+class WSConv1d(Conv1d):
     """Weight-standardised 'same' conv (odd kernel): per output channel,
-    (w - mean) / sqrt(var + 1e-5) over (taps, input channels), then bias."""
+    (w - mean) / sqrt(var + eps) over (taps, input channels) in float32,
+    then the conv and bias in ``compute_dtype``."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
-        super().__init__(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2)
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 compute_dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, padding=(kernel_size - 1) // 2,
+                         compute_dtype=compute_dtype)
 
     def forward(self, x):
+        dt = self.compute_dtype
+        eps = 1e-5 if dt in (None, torch.float32) else 1e-3
         var, mean = torch.var_mean(self.weight, dim=(1, 2), keepdim=True, correction=0)
-        w = (self.weight - mean) * torch.rsqrt(var + 1e-5)
-        return self._conv_forward(x, w, self.bias)
+        w = (self.weight - mean) * torch.rsqrt(var + eps)
+        return self._functional(cast_to(x, dt), cast_to(w, dt), cast_to(self.bias, dt))
 
 
 class ChanLayerNorm(nn.Module):
-    """LayerNorm over the channel axis (1) with a scale ``g`` and no bias."""
+    """LayerNorm over the channel axis (1) with a scale ``g`` and no bias:
+    float32 statistics, the result in the input's dtype."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.g = nn.Parameter(torch.ones(channels))
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=1, keepdim=True, correction=0)
-        return (x - mean) * torch.rsqrt(var + 1e-5) * self.g[:, None]
+        eps = 1e-3 if x.dtype in (torch.bfloat16, torch.float16) else 1e-5
+        xf = x.to(stats_dtype(x))
+        var, mean = torch.var_mean(xf, dim=1, keepdim=True, correction=0)
+        return ((xf - mean) * torch.rsqrt(var + eps) * self.g[:, None]).to(x.dtype)
 
 
 class UnetBlock(nn.Module):
     """WSConv -> GroupNorm (eps 1e-5) -> Snake -> dropout (train mode)."""
 
-    def __init__(self, in_channels: int, features: int, groups: int, rate: float):
+    def __init__(self, in_channels: int, features: int, groups: int, rate: float,
+                 compute_dtype=None, fast_norm: bool = False):
         super().__init__()
         self.rate = rate
-        self.WSConv1d_0 = WSConv1d(in_channels, features)
-        self.GroupNorm_0 = nn.GroupNorm(groups, features, eps=1e-5)
+        self.compute_dtype = compute_dtype
+        self.WSConv1d_0 = WSConv1d(in_channels, features, compute_dtype=compute_dtype)
+        self.GroupNorm_0 = GroupNorm(groups, features, eps=1e-5, fast=fast_norm)
         self.Snake_0 = Snake(features)
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
-        x = self.Snake_0(self.GroupNorm_0(self.WSConv1d_0(x)))
+        x = self.Snake_0(normalize(self.GroupNorm_0, self.WSConv1d_0(x), self.compute_dtype))
         return dropout(x, self.rate, generator) if train and self.rate > 0.0 else x
 
 
 class ResnetBlock1d(nn.Module):
     """Two UnetBlocks plus the input, through a 1x1 conv when the width changes."""
 
-    def __init__(self, in_channels: int, features: int, groups: int, rate: float):
+    def __init__(self, in_channels: int, features: int, groups: int, rate: float,
+                 compute_dtype=None, fast_norm: bool = False):
         super().__init__()
-        self.UnetBlock_0 = UnetBlock(in_channels, features, groups, rate)
-        self.UnetBlock_1 = UnetBlock(features, features, groups, rate)
+        self.compute_dtype = compute_dtype
+        self.UnetBlock_0 = UnetBlock(in_channels, features, groups, rate, compute_dtype, fast_norm)
+        self.UnetBlock_1 = UnetBlock(features, features, groups, rate, compute_dtype, fast_norm)
         if in_channels != features:
-            self.Conv_0 = nn.Conv1d(in_channels, features, 1)
+            self.Conv_0 = Conv1d(in_channels, features, 1, compute_dtype=compute_dtype)
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         h = self.UnetBlock_1(self.UnetBlock_0(x, train, generator), train, generator)
-        return (self.Conv_0(x) if hasattr(self, "Conv_0") else x) + h
+        return cast_to(self.Conv_0(x) if hasattr(self, "Conv_0") else x, self.compute_dtype) + h
 
 
 class LinearAttention1d(nn.Module):
@@ -104,6 +134,7 @@ class LinearAttention1d(nn.Module):
 
     def forward(self, x):
         B, _, N = x.shape
+        x = x.to(self.Conv_0.weight.dtype)  # flax promotes a bfloat16 stream to the parameters'
         q, k, v = (t.reshape(B, self.heads, self.dim_head, N) for t in self.Conv_0(x).chunk(3, 1))
         q = torch.softmax(q, dim=-2) * self.dim_head ** -0.5
         k = torch.softmax(k, dim=-1)
@@ -124,6 +155,7 @@ class Attention1d(nn.Module):
 
     def forward(self, x):
         B, _, N = x.shape
+        x = x.to(self.Conv_0.weight.dtype)  # flax promotes a bfloat16 stream to the parameters'
         q, k, v = (t.reshape(B, self.heads, self.dim_head, N) for t in self.Conv_0(x).chunk(3, 1))
         sim = torch.einsum("bhdi,bhdj->bhij", q * self.dim_head ** -0.5, k)
         out = torch.einsum("bhij,bhdj->bhdi", torch.softmax(sim, dim=-1), v)
@@ -147,37 +179,40 @@ class Unet1D(nn.Module):
     """(B, channels, L) -> (B, channels, L)."""
 
     def __init__(self, dim: int, channels: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
-                 resnet_block_groups: int = 8, dropout: float = 0.0):
+                 resnet_block_groups: int = 8, dropout: float = 0.0,
+                 compute_dtype=None, fast_norm: bool = False):
         super().__init__()
         g, p = resnet_block_groups, dropout
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         self._counts = {}
 
-        self.stem = self._add("Conv", nn.Conv1d(channels, dim, 7, padding=3))
+        def res(d_in, d_out):
+            return self._add("ResnetBlock1d",
+                             ResnetBlock1d(d_in, d_out, g, p, compute_dtype, fast_norm))
+
+        def conv(*args, **kw):  # a stream conv, in the compute dtype
+            return self._add("Conv", Conv1d(*args, **kw, compute_dtype=compute_dtype))
+
+        self.stem = conv(channels, dim, 7, padding=3)
         self.downs = []  # (resnet, resnet, prenorm, attention, conv, stride)
         for ind, (d_in, d_out) in enumerate(in_out):
-            blocks = [self._add("ResnetBlock1d", ResnetBlock1d(d_in, d_in, g, p)),
-                      self._add("ResnetBlock1d", ResnetBlock1d(d_in, d_in, g, p)),
-                      *self._attention(d_in, LinearAttention1d)]
+            blocks = [res(d_in, d_in), res(d_in, d_in), *self._attention(d_in, LinearAttention1d)]
             if ind < len(in_out) - 1:
-                blocks.append(self._add("Conv", nn.Conv1d(d_in, d_out, 4, stride=2, padding=1)))
+                blocks.append(conv(d_in, d_out, 4, stride=2, padding=1))
             else:
-                blocks.append(self._add("Conv", nn.Conv1d(d_in, d_out, 3, padding=1)))
+                blocks.append(conv(d_in, d_out, 3, padding=1))
             self.downs.append(blocks)
         mid = dims[-1]
-        self.mid = [self._add("ResnetBlock1d", ResnetBlock1d(mid, mid, g, p)),
-                    *self._attention(mid, Attention1d),
-                    self._add("ResnetBlock1d", ResnetBlock1d(mid, mid, g, p))]
+        self.mid = [res(mid, mid), *self._attention(mid, Attention1d), res(mid, mid)]
         self.ups = []  # (resnet, resnet, prenorm, attention, conv); 2x nearest before all but the last conv
         for d_in, d_out in reversed(in_out):
-            self.ups.append([self._add("ResnetBlock1d", ResnetBlock1d(d_out + d_in, d_out, g, p)),
-                             self._add("ResnetBlock1d", ResnetBlock1d(d_out + d_in, d_out, g, p)),
+            self.ups.append([res(d_out + d_in, d_out), res(d_out + d_in, d_out),
                              *self._attention(d_out, LinearAttention1d),
-                             self._add("Conv", nn.Conv1d(d_out, d_in, 3, padding=1))])
-        self.last_up = self._add("Conv", nn.Conv1d(dim, dim, 3, padding=1))
-        self.final = self._add("ResnetBlock1d", ResnetBlock1d(2 * dim, dim, g, p))
-        self.head = [self._add("Conv", nn.Conv1d(dim, channels, 1)),
+                             conv(d_out, d_in, 3, padding=1)])
+        self.last_up = conv(dim, dim, 3, padding=1)
+        self.final = res(2 * dim, dim)
+        self.head = [self._add("Conv", nn.Conv1d(dim, channels, 1)),  # float32
                      self._add("Conv", nn.Conv1d(channels, channels, 3)),
                      self._add("Conv", nn.Conv1d(channels, channels, 3))]
 
@@ -193,7 +228,8 @@ class Unet1D(nn.Module):
                 self._add(cls.__name__, cls(channels))]
 
     def _attend(self, x, prenorm: str, attention: str):
-        return x + getattr(self, attention)(getattr(self, prenorm).ChanLayerNorm_0(x))
+        out = getattr(self, attention)(getattr(self, prenorm).ChanLayerNorm_0(x))  # float32
+        return x + out.to(x.dtype)
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         m = lambda name: getattr(self, name)  # noqa: E731
@@ -218,7 +254,7 @@ class Unet1D(nn.Module):
         x = m(self.last_up)(interp_nearest(x, 2 * x.shape[-1]))
         x = torch.cat([interp_linear(x, r.shape[-1]), r], dim=1)
         x = m(self.final)(x, train, generator)
-        x = m(self.head[0])(x)
+        x = m(self.head[0])(x.to(m(self.head[0]).weight.dtype))
         for name in self.head[1:]:  # edge padding 1, then a VALID k3 conv
             x = m(name)(nn.functional.pad(x, (1, 1), mode="replicate"))
         return x
@@ -231,18 +267,16 @@ class FidelityEnhancer(nn.Module):
                  dim_mults: Sequence[int] = (1, 2, 4, 8), resnet_block_groups: int = 4,
                  dropout: float = 0.5, compute_dtype: str = "float32", fast_norm: bool = False):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r}: only float32 is ported")
-        if fast_norm:
-            raise NotImplementedError("fast_norm is not ported yet")
         self.input_length = input_length
-        self.Unet1D_0 = Unet1D(dim, in_channels, tuple(dim_mults), resnet_block_groups, dropout)
+        self.Unet1D_0 = Unet1D(dim, in_channels, tuple(dim_mults), resnet_block_groups, dropout,
+                               cast_dtype(compute_dtype), fast_norm)
 
     @staticmethod
-    def from_config(cfg, input_length: int, in_channels: int) -> "FidelityEnhancer":
+    def from_config(cfg, input_length: int, in_channels: int, compute_dtype: str = "float32",
+                    fast_norm: bool = False) -> "FidelityEnhancer":
         fe = cfg.fidelity_enhancer
         return FidelityEnhancer(input_length, in_channels, fe.dim, tuple(fe.dim_mults),
-                                fe.resnet_block_groups, fe.dropout)
+                                fe.resnet_block_groups, fe.dropout, compute_dtype, fast_norm)
 
     def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
         """``train`` turns dropout on, with masks drawn from ``generator``."""

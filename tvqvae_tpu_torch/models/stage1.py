@@ -14,6 +14,12 @@ before it is flattened to (B, H'*W', D), and back on decode, so token n is
 ``forward(..., train=True)`` puts the stacks in train mode (BatchNorm batch
 statistics and running-statistics update, ResBlock dropout) and ``False``
 back in eval mode; ``encode``/``decode`` run in whichever mode the module is.
+
+The spec carries the JAX package's precision options: ``compute_dtype``
+(the four conv stacks; parameters, BatchNorm statistics, the VQ, the loss
+targets and the losses stay float32), ``fast_bn``, ``remat``, ``bf16_head``
+(the TimeHeads' dense in the compute dtype) and ``bf16_istft`` (the decode
+path's iSTFT in the compute dtype).
 """
 
 from dataclasses import dataclass
@@ -23,7 +29,7 @@ import torch
 from torch import nn
 
 from tvqvae_tpu_torch.config import Config
-from tvqvae_tpu_torch.models.layers import init_weights_
+from tvqvae_tpu_torch.models.layers import cast_dtype, init_weights_
 from tvqvae_tpu_torch.models.vq import CodebookState, VQOutput, VQParams, init_codebook, vq_forward
 from tvqvae_tpu_torch.models.vqvae import TimeHead, VQVAEDecoder, VQVAEEncoder
 from tvqvae_tpu_torch.ops import (
@@ -58,9 +64,16 @@ class Stage1Spec:
     vq_h: VQParams
     dropout_enc: float = 0.3
     dropout_dec: float = 0.3
+    compute_dtype: str = "float32"
+    remat: bool = False
+    fast_bn: bool = False
+    bf16_head: bool = False
+    bf16_istft: bool = False
 
     @staticmethod
-    def from_config(cfg: Config, input_length: int, in_channels: int) -> "Stage1Spec":
+    def from_config(cfg: Config, input_length: int, in_channels: int,
+                    compute_dtype: str = "float32", remat: bool = False, fast_bn: bool = False,
+                    bf16_head: bool = False, bf16_istft: bool = False) -> "Stage1Spec":
         g_l = token_geometry(input_length, cfg.vqvae.n_fft, cfg.encoder.downsampled_width["lf"])
         g_h = token_geometry(input_length, cfg.vqvae.n_fft, cfg.encoder.downsampled_width["hf"])
 
@@ -94,6 +107,11 @@ class Stage1Spec:
             vq_h=mk_vq("hf"),
             dropout_enc=cfg.encoder.dropout,
             dropout_dec=cfg.decoder.dropout,
+            compute_dtype=compute_dtype,
+            remat=remat,
+            fast_bn=fast_bn,
+            bf16_head=bf16_head,
+            bf16_istft=bf16_istft,
         )
 
 
@@ -115,16 +133,19 @@ class Stage1Model(nn.Module):
         s = spec
         self.spec = s
         spectral = 2 * s.in_channels
+        self.compute_dtype = dt = cast_dtype(s.compute_dtype)  # None: float32
+        prec = dict(compute_dtype=dt, remat=s.remat, fast_bn=s.fast_bn)
         self.encoder_l = VQVAEEncoder(spectral, s.init_dim, s.hid_dim, s.halvings_l,
-                                      s.n_resnet_blocks_enc, dropout=s.dropout_enc)
+                                      s.n_resnet_blocks_enc, dropout=s.dropout_enc, **prec)
         self.encoder_h = VQVAEEncoder(spectral, s.init_dim, s.hid_dim, s.halvings_h,
-                                      s.n_resnet_blocks_enc, dropout=s.dropout_enc)
+                                      s.n_resnet_blocks_enc, dropout=s.dropout_enc, **prec)
         self.decoder_l = VQVAEDecoder(s.init_dim, s.hid_dim, spectral, s.halvings_l,
-                                      s.n_resnet_blocks_dec, dropout=s.dropout_dec)
+                                      s.n_resnet_blocks_dec, dropout=s.dropout_dec, **prec)
         self.decoder_h = VQVAEDecoder(s.init_dim, s.hid_dim, spectral, s.halvings_h,
-                                      s.n_resnet_blocks_dec, dropout=s.dropout_dec)
-        self.head_l = TimeHead(s.input_length)
-        self.head_h = TimeHead(s.input_length)
+                                      s.n_resnet_blocks_dec, dropout=s.dropout_dec, **prec)
+        head_dt = dt if s.bf16_head else None
+        self.head_l = TimeHead(s.input_length, head_dt)
+        self.head_h = TimeHead(s.input_length, head_dt)
 
     def encode(self, x: torch.Tensor, band: str,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -146,6 +167,8 @@ class Stage1Model(nn.Module):
         head = self.head_l if band == "lf" else self.head_h
         pad = zero_pad_high_freq if band == "lf" else zero_pad_low_freq
         u = pad(dec(z, generator))  # zero the other band of the decoder output
+        if s.bf16_istft and self.compute_dtype is not None:
+            u = u.to(self.compute_dtype)  # the head adds in float32
         return head(timefreq_to_time(u, s.n_fft))
 
     def forward(

@@ -18,6 +18,10 @@ On the card a float32 convolution runs in TF32 unless
 ``torch.backends.cudnn.allow_tf32`` is off; the JAX package computes the
 transform at ``Precision.HIGHEST``, so the port's float32 entry points turn
 TF32 off (``utils/device.py``).
+
+Both transforms compute in their input's dtype, as JAX's do: the kernels
+are rounded to it from float64, and the iSTFT's window-square envelope and
+its division run in it too (the decode path's bfloat16 iSTFT).
 """
 
 import numpy as np
@@ -110,10 +114,8 @@ def timefreq_to_time(xf: torch.Tensor, n_fft: int, norm: bool = True) -> torch.T
     z = xf.reshape(B, C, 2, nbins, W).transpose(2, 3).reshape(B * C, 2 * nbins, W)
     ola = F.conv_transpose1d(z, _const(_synthesis_kernel(n_fft, norm), xf), stride=hop)
 
-    wsq = (hann_window(n_fft) ** 2).reshape(1, 1, n_fft)
-    env = F.conv_transpose1d(
-        xf.new_ones((1, 1, W)), _const(wsq, xf), stride=hop
-    )
+    wsq = _const(hann_window(n_fft), xf).square().reshape(1, 1, n_fft)  # squared in the dtype
+    env = F.conv_transpose1d(xf.new_ones((1, 1, W)), wsq, stride=hop)
     L_out = (W - 1) * hop
     y = ola[:, 0, pad:pad + L_out] / env[:, 0, pad:pad + L_out]
     return y.reshape(B, C, L_out)

@@ -3,7 +3,8 @@
 Port of ``tvqvae_tpu/scripts/generate.py``, with its flags:
 
     python -m tvqvae_tpu_torch.scripts.generate --dataset_file data.npz \
-        [--model_save_dir saved_models] [--n_samples N] [--device cuda]
+        [--model_save_dir saved_models] [--n_samples N] [--device cuda] \
+        [--bf16] [--no-fast_bn]
 
 Per-class conditional sampling matched to the real class distribution, the
 inverse min-max transform, timedelta[0] := 0 and altitude clipped at >= 0
@@ -23,7 +24,7 @@ import numpy as np
 
 from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.generation import TrainedModelSampler
-from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
+from tvqvae_tpu_torch.scripts._cli import load_config
 from tvqvae_tpu_torch.serving import postprocess_generated
 
 
@@ -93,16 +94,18 @@ def build_argparser():
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
-    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="the frozen stage-1 stacks and the enhancer in bfloat16, with the "
+                        "TimeHead and the iSTFT (the JAX sampler's defaults under bf16)")
+    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=True,
+                   help="BatchNorm/GroupNorm normalisation in the compute dtype "
+                        "(--no-fast_bn: flax's float32 promotion)")
     return p
 
 
 def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
-    refuse_unported(p, {"--bf16": args.bf16, "--fast_bn": args.fast_bn})
     cfg = load_config(args.config)
     data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
     ckpt = os.path.join(args.model_save_dir, Path(args.dataset_file).stem)
@@ -114,7 +117,8 @@ def main(argv=None):
     # (one sampler, read from disk once, with its enhancer off and then on)
     sampler = TrainedModelSampler.from_checkpoints(
         cfg, os.path.join(ckpt, "stage1"), os.path.join(ckpt, "stage2"),
-        stage3 if has_fe else None, batch_size=args.batch_size, device=args.device)
+        stage3 if has_fe else None, batch_size=args.batch_size, device=args.device,
+        compute_dtype="bfloat16" if args.bf16 else "float32", fast_bn=args.fast_bn)
     generate_synthetic_data(cfg, sampler, data, n, args.synthetic_save_dir,
                             cfg.dataset.features, seed=args.seed)
     if has_fe:

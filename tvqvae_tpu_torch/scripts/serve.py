@@ -3,12 +3,15 @@
 Port of ``tvqvae_tpu/scripts/serve.py``, with its flags:
 
     python -m tvqvae_tpu_torch.scripts.serve --dataset_file data.npz \
-        --model_save_dir saved_models --port 8080 [--use_fe] [--warm_classes]
+        --model_save_dir saved_models --port 8080 [--use_fe] [--warm_classes] \
+        [--bf16] [--no-fast_bn]
 
 It loads the stage checkpoints as the generate CLI does and fits nothing:
 the training scaler is derived again from the dataset file, so responses
-come back in original physical units. ``build_service`` makes the service
-without serving it. See ``tvqvae_tpu_torch/serving/`` for the endpoints.
+come back in original physical units. ``--bf16`` and ``--fast_bn`` (on by
+default) set the sampler's precision, as in the JAX CLI; ``--data_parallel``
+is not ported and is refused. ``build_service`` makes the service without
+serving it. See ``tvqvae_tpu_torch/serving/`` for the endpoints.
 """
 
 import argparse
@@ -41,17 +44,19 @@ def build_argparser():
                    help="merge concurrent same-class seedless requests arriving within this "
                         "window into one batch")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
-    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
+    p.add_argument("--bf16", action="store_true",
+                   help="the frozen stage-1 stacks and the enhancer in bfloat16, with the "
+                        "TimeHead and the iSTFT (the JAX sampler's defaults under bf16)")
+    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=True,
+                   help="BatchNorm/GroupNorm normalisation in the compute dtype "
+                        "(--no-fast_bn: flax's float32 promotion)")
     p.add_argument("--data_parallel", action="store_true", help="not ported yet")
     return p
 
 
 def build_service(args, parser=None) -> GenerationService:
     """The service ``main`` serves, from parsed arguments, not yet warmed."""
-    refuse_unported(parser or build_argparser(), {
-        "--bf16": args.bf16, "--fast_bn": args.fast_bn, "--data_parallel": args.data_parallel})
+    refuse_unported(parser or build_argparser(), {"--data_parallel": args.data_parallel})
     cfg = load_config(args.config)
     data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
     ckpt = os.path.join(args.model_save_dir, Path(args.dataset_file).stem)
@@ -63,6 +68,8 @@ def build_service(args, parser=None) -> GenerationService:
         stage3_ckpt=stage3 if (args.use_fe and os.path.exists(stage3)) else None,
         use_fidelity_enhancer=args.use_fe,
         batch_size=args.batch_size,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        fast_bn=args.fast_bn,
         device=args.device,
     )
     return GenerationService(

@@ -20,9 +20,13 @@ the supervised FCN needs ``fcn`` on disk and falls back to ROCKET without
 it) unless ``--no_val_metrics``; ``--search_tau`` picks stage 3's SVQ
 temperature by FID first (``generation.search_optimal_tau``).
 
-The JAX flags all parse, defaulting to what the port runs (float32, one
-optimizer step per dispatch, the precomputed token and x' sets, on the
-card); asking for an option the port does not run is an error naming it.
+The JAX flags all parse, with the JAX CLI's defaults but one: the
+production recipe's ``--fast_bn --bf16_mu --bf16_head`` on, ``--bf16``,
+``--bf16_nu``, ``--bf16_istft`` and ``--remat`` off, passed to the runners as
+the JAX CLI passes them (stage 3 gets ``fast_norm=--fast_bn``). The
+exception is ``--bundle_steps``, 1 here: step bundles are not ported.
+Asking for ``--bundle_steps`` > 1, ``--rbg_rng``, ``--no_precompute``,
+``--host_data`` or ``--tp`` > 1 is an error naming it.
 """
 
 import argparse
@@ -58,21 +62,25 @@ def build_argparser():
     p.add_argument("--use_pallas", action="store_true",
                    help="accepted for the JAX command line: on the card the port always "
                         "runs its CUDA VQ kernel")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute in the stage-1 conv stacks and the stage-3 U-Net "
+                        "stream (parameters, norm statistics, VQ, losses, attention float32)")
+    p.add_argument("--remat", action="store_true",
+                   help="stage 1: recompute each conv block in the backward (less memory)")
+    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=True,
+                   help="BatchNorm (stage 1) and GroupNorm (stage 3) normalisation in the "
+                        "compute dtype over float32 statistics")
+    p.add_argument("--bf16_mu", action=argparse.BooleanOptionalAction, default=True,
+                   help="store AdamW's first moment in bfloat16 (the update stays float32)")
+    p.add_argument("--bf16_nu", action=argparse.BooleanOptionalAction, default=False,
+                   help="store AdamW's second moment in bfloat16")
+    p.add_argument("--bf16_head", action=argparse.BooleanOptionalAction, default=True,
+                   help="stage 1: the TimeHead dense in the compute dtype (residual float32)")
+    p.add_argument("--bf16_istft", action=argparse.BooleanOptionalAction, default=False,
+                   help="stage 1: the decode path's iSTFT in the compute dtype")
     # the JAX package's options the port does not run: refused when asked for
-    p.add_argument("--bf16", action="store_true", help="not ported yet")
     p.add_argument("--bundle_steps", type=int, default=1,
                    help="optimizer steps per dispatch; > 1 is not ported yet")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
-    p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
-    p.add_argument("--bf16_mu", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
-    p.add_argument("--bf16_nu", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
-    p.add_argument("--bf16_head", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
-    p.add_argument("--bf16_istft", action=argparse.BooleanOptionalAction, default=False,
-                   help="not ported yet")
     p.add_argument("--rbg_rng", action="store_true", help="not ported yet")
     p.add_argument("--no_precompute", action="store_true", help="not ported yet")
     p.add_argument("--host_data", action="store_true", help="not ported yet")
@@ -98,13 +106,12 @@ def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
     refuse_unported(p, {
-        "--bf16": args.bf16,
-        "--bundle_steps > 1": args.bundle_steps > 1, "--remat": args.remat,
-        "--fast_bn": args.fast_bn, "--bf16_mu": args.bf16_mu, "--bf16_nu": args.bf16_nu,
-        "--bf16_head": args.bf16_head, "--bf16_istft": args.bf16_istft,
-        "--rbg_rng": args.rbg_rng, "--no_precompute": args.no_precompute,
-        "--host_data": args.host_data, "--tp > 1": args.tp > 1,
+        "--bundle_steps > 1": args.bundle_steps > 1, "--rbg_rng": args.rbg_rng,
+        "--no_precompute": args.no_precompute, "--host_data": args.host_data,
+        "--tp > 1": args.tp > 1,
     })
+    dtype = "bfloat16" if args.bf16 else "float32"
+    moments = dict(bf16_mu=args.bf16_mu, bf16_nu=args.bf16_nu)
     cfg = load_config(args.config)
     data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
     stem = Path(args.dataset_file).stem
@@ -143,18 +150,22 @@ def main(argv=None):
         log = logger(f"stage{stage}" if stage != "fcn" else "fcn")
         try:
             if stage == "1":
-                runner.train_stage1(cfg, data, logger=log, save_path=paths["1"], **common)
+                runner.train_stage1(cfg, data, logger=log, save_path=paths["1"],
+                                    compute_dtype=dtype, remat=args.remat, fast_bn=args.fast_bn,
+                                    bf16_head=args.bf16_head, bf16_istft=args.bf16_istft,
+                                    **moments, **common)
             elif stage == "2":
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
                 runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"],
-                                    metrics=val_metrics, **common)
+                                    metrics=val_metrics, **moments, **common)
             elif stage == "3":
                 tau = search_tau(cfg, data, paths, args.device) if args.search_tau else 0.0
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
                 runner.train_stage3(
                     cfg, data, frozen, tau=tau, logger=log, save_path=paths["3"],
                     stage2_ckpt=paths["2"] if os.path.exists(paths["2"]) else None,
-                    metrics=val_metrics, **common)
+                    metrics=val_metrics, compute_dtype=dtype, fast_norm=args.fast_bn,
+                    **moments, **common)
             elif stage == "fcn":
                 runner.train_fcn(cfg, data, logger=log, seed=args.seed, device=args.device,
                                  save_path=paths["fcn"])

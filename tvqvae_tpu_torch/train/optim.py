@@ -1,20 +1,127 @@
-"""AdamW driven by a step schedule.
+"""AdamW driven by a step schedule, with optional bfloat16 moment storage.
 
-Port of ``tvqvae_tpu/train/optim.py::adamw`` as the stage-1 runner builds it
+Port of ``tvqvae_tpu/train/optim.py::adamw`` as the runners build it
 (``train/runner.py::_adamw``): ``optax.adamw`` over every parameter (no
 mask), b1 0.9, b2 0.999, eps 1e-8 added to sqrt of the bias-corrected second
-moment, decoupled weight decay 0.01 scaled by the scheduled lr. That is what
-``torch.optim.AdamW`` computes; the schedule drives it through ``LambdaLR``,
-which, like optax, reads the step count before the step's increment.
+moment, decoupled weight decay scaled by the scheduled lr. The schedule
+drives it through ``LambdaLR``, which, like optax, reads the step count
+before the step's increment.
 
-The moment-storage dtypes (``mu_dtype`` / ``nu_dtype``, the JAX package's
-``bf16_mu`` / ``bf16_nu``) are not ported and raise ``NotImplementedError``.
+``AdamWStorage`` follows optax 0.2.6's ``scale_by_adam`` step by step: the
+moments are updated in (at least) float32 as ``(1 - b)·g^k + b·m``, the
+step's update is computed from the unrounded moments, and only then are they
+rounded (to nearest even) into their storage dtype. That is the parameter's
+dtype unless ``mu_dtype`` / ``nu_dtype`` (the JAX package's ``bf16_mu`` /
+``bf16_nu``) name another.
+
+One rounding is optax's own: in ``b·m`` JAX's weak typing casts the Python
+float ``b`` to the stored moment's dtype, so a bfloat16 moment decays by
+``b`` rounded to bfloat16 (0.9 -> 0.8984375; 0.999 -> 1.0, so a bfloat16
+second moment does not decay at all). The bias corrections ``1 - b^t`` are
+computed in float32 (float64 for float64 parameters), as optax computes them
+outside ``jax.enable_x64``. ``AdamWStorage`` computes the same, so that its
+stored moments are optax's.
 """
 
 from typing import Callable, Iterable, Optional, Tuple, Union
 
 import torch
 from torch.optim.lr_scheduler import LambdaLR
+
+
+class AdamWStorage(torch.optim.Optimizer):
+    """optax's ``adamw`` with its moments stored in ``mu_dtype`` /
+    ``nu_dtype`` (None: the parameter's dtype). The per-parameter state is
+    torch AdamW's (``step``, ``exp_avg``, ``exp_avg_sq``), so ``state_dict``
+    and ``load_state_dict`` save and restore it; a restored moment keeps its
+    storage dtype.
+
+    The update runs over flat chunks of up to ``CHUNK`` elements (a chunk is
+    consecutive whole parameters of one dtype and device; its moments are one
+    buffer each, the per-parameter states views into them): a fixed number of
+    elementwise kernels per chunk, not per parameter, with the same
+    arithmetic element by element. A parameter without a gradient counts as
+    a zero gradient, as optax sees it; every parameter of a group steps
+    together."""
+
+    CHUNK = 1 << 24  # elements a chunk's float32 temporaries span (64 MB each)
+
+    def __init__(self, params, lr: float = 1.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.01, mu_dtype: Optional[torch.dtype] = None,
+                 nu_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+        self.nu_dtype = nu_dtype
+        self._chunks = None  # [(params, mu buffer, nu buffer)], built at the first step
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)  # casts every moment to its parameter's dtype
+        self._chunks = None  # rebuilt from the restored moments, in their storage dtypes
+
+    def _build_chunks(self):
+        """Group the parameters into chunks and move each chunk's moments
+        (zeros, or the restored ones) into one flat buffer per moment."""
+        self._chunks = []
+        for group in self.param_groups:
+            cur, n = [], 0
+            for p in group["params"] + [None]:
+                if p is None or (cur and (n + p.numel() > self.CHUNK or p.dtype != cur[0].dtype
+                                          or p.device != cur[0].device)):
+                    if cur:
+                        self._chunks.append(self._flatten(group, cur))
+                    cur, n = [], 0
+                if p is not None:
+                    cur.append(p)
+                    n += p.numel()
+
+    def _flatten(self, group, params):
+        flats = []
+        for key, dt in (("exp_avg", self.mu_dtype or params[0].dtype),
+                        ("exp_avg_sq", self.nu_dtype or params[0].dtype)):
+            parts = [self.state[p][key].reshape(-1) if key in self.state[p]
+                     else torch.zeros(p.numel(), dtype=dt, device=p.device) for p in params]
+            flat = torch.cat(parts).to(dt)
+            for p, view in zip(params, flat.split([q.numel() for q in params])):
+                self.state[p][key] = view.view_as(p)
+            flats.append(flat)
+        for p in params:
+            self.state[p].setdefault("step", torch.tensor(0.0))
+        return group, params, flats[0], flats[1]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamWStorage.step takes no closure")
+        if self._chunks is None:
+            self._build_chunks()
+        for group, params, mu_flat, nu_flat in self._chunks:
+            lr, (b1, b2), eps, wd = group["lr"], group["betas"], group["eps"], group["weight_decay"]
+            steps = [self.state[p]["step"] for p in params]
+            torch._foreach_add_(steps, 1.0)
+            count = int(steps[0])
+            # the decays as optax applies them: rounded to the moment's dtype (module doc)
+            d1 = float(torch.tensor(b1, dtype=mu_flat.dtype))
+            d2 = float(torch.tensor(b2, dtype=nu_flat.dtype))
+            cdt = torch.promote_types(params[0].dtype, torch.float32)
+            g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                           for p in params]).to(cdt)
+            mu = g * (1.0 - b1)
+            mu += mu_flat.to(cdt) * d1
+            nu = g * g
+            nu *= 1.0 - b2
+            nu += nu_flat.to(cdt) * d2
+            del g
+            # the bias corrections as optax computes them: 1 - b^t in the compute dtype
+            c1, c2 = (float(1.0 - torch.tensor(b, dtype=cdt) ** count) for b in (b1, b2))
+            u = mu / c1
+            u /= (nu / c2).sqrt_() + eps
+            u += torch.cat([p.reshape(-1) for p in params]).to(cdt) * wd
+            u *= -lr
+            u = u.to(params[0].dtype)
+            torch._foreach_add_(params, [v.view_as(p) for p, v in
+                                         zip(params, u.split([p.numel() for p in params]))])
+            mu_flat.copy_(mu)  # rounded to nearest even into the stored dtype
+            nu_flat.copy_(nu)
 
 
 def adamw(
@@ -26,12 +133,11 @@ def adamw(
     eps: float = 1e-8,
     mu_dtype: Optional[torch.dtype] = None,
     nu_dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.optim.AdamW, LambdaLR]:
-    """-> (optimizer, scheduler). Call ``optimizer.step()`` then
+) -> Tuple[AdamWStorage, LambdaLR]:
+    """-> (``AdamWStorage``, scheduler). Call ``optimizer.step()`` then
     ``scheduler.step()`` once per training step."""
-    if mu_dtype is not None or nu_dtype is not None:
-        raise NotImplementedError("bf16 moment storage (mu_dtype/nu_dtype) is not ported yet")
     schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
     # base lr 1: the scheduler's factor is then the learning rate itself
-    opt = torch.optim.AdamW(params, lr=1.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+    opt = AdamWStorage(params, lr=1.0, betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                       mu_dtype=mu_dtype, nu_dtype=nu_dtype)
     return opt, LambdaLR(opt, schedule)

@@ -143,12 +143,19 @@ def _stage_completed(save_path: str, max_steps: int, resume: bool,
     return False
 
 
-def load_stage1_bundle(cfg: Config, stage1_ckpt: str, device="cuda"):
+def load_stage1_bundle(cfg: Config, stage1_ckpt: str, device="cuda",
+                       compute_dtype: str = "float32", fast_bn: bool = False,
+                       bf16_head: bool = False, bf16_istft: bool = False):
     """A stage-1 checkpoint -> (FrozenStage1 on ``device``, Stage1Spec, meta);
-    the geometry comes from the meta, the rest of the spec from ``cfg``."""
+    the geometry comes from the meta, the rest of the spec from ``cfg``.
+    ``compute_dtype``, ``fast_bn``, ``bf16_head`` and ``bf16_istft`` set the
+    loaded stacks' inference precision (the checkpoint's parameters are
+    float32 either way); the stage 1 that stages 2-3 train over is float32."""
     dev = resolve_device(device)
     tree, meta = load_checkpoint(stage1_ckpt)
-    spec = Stage1Spec.from_config(cfg, int(meta["input_length"]), int(meta["in_channels"]))
+    spec = Stage1Spec.from_config(cfg, int(meta["input_length"]), int(meta["in_channels"]),
+                                  compute_dtype=compute_dtype, fast_bn=fast_bn,
+                                  bf16_head=bf16_head, bf16_istft=bf16_istft)
     frozen = FrozenStage1.from_state_dict(spec, stage1_from_jax(tree), dev)
     frozen.model.requires_grad_(False)
     return frozen, spec, meta
@@ -220,12 +227,15 @@ def _save_stage(name: str, save_path: str, tree: dict, cfg: Config, data: Datase
           f"in {time.time() - t0:.1f}s")
 
 
-def _adamw(cfg: Config, max_steps: int) -> Callable:
+def _adamw(cfg: Config, max_steps: int, bf16_mu: bool = False, bf16_nu: bool = False) -> Callable:
     """AdamW (weight decay 0.01) with the reference warmup-cosine schedule, as
-    ``tx(parameters) -> (optimizer, scheduler)``."""
+    ``tx(parameters) -> (optimizer, scheduler)``; ``bf16_mu``/``bf16_nu``
+    store the first/second moment in bfloat16 (the update stays float32)."""
     schedule = warmup_cosine_schedule(cfg.exp_params.lr, max_steps,
                                       cfg.exp_params.linear_warmup_rate)
-    return functools.partial(adamw, learning_rate=schedule, weight_decay=0.01)
+    return functools.partial(adamw, learning_rate=schedule, weight_decay=0.01,
+                             mu_dtype=torch.bfloat16 if bf16_mu else None,
+                             nu_dtype=torch.bfloat16 if bf16_nu else None)
 
 
 def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval: int,
@@ -343,12 +353,13 @@ def train_stage1(
     "step"}`` there at the end. Batches of
     ``dataset.batch_sizes["stage1"]`` follow ``make_batches(shuffle=True,
     seed=seed, repeat=True)``; dropout masks come from a generator seeded
-    ``seed + 1``. The step bundles (``bundle_steps`` > 1), reduced-precision,
-    remat, tensor-parallel and RNG-implementation options of the JAX runner
-    are not ported and raise ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, compute_dtype=compute_dtype != "float32",
-              remat=remat, fast_bn=fast_bn, bf16_mu=bf16_mu, bf16_nu=bf16_nu, bf16_head=bf16_head,
-              bf16_istft=bf16_istft, tp=tp > 1, rng_impl=rng_impl is not None)
+    ``seed + 1``. ``compute_dtype``, ``remat``, ``fast_bn``, ``bf16_head``
+    and ``bf16_istft`` go into the spec (``models/stage1.py``), ``bf16_mu``
+    and ``bf16_nu`` into the optimizer (``_adamw``), as in the JAX runner.
+    Its step bundles (``bundle_steps`` > 1), tensor parallelism (``tp`` > 1)
+    and RNG implementation (``rng_impl``) are not ported and raise
+    ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1, rng_impl=rng_impl is not None)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage1"]
@@ -357,9 +368,11 @@ def train_stage1(
     order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_init = time.time()
-    spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels)
+    spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels,
+                                  compute_dtype=compute_dtype, remat=remat, fast_bn=fast_bn,
+                                  bf16_head=bf16_head, bf16_istft=bf16_istft)
     model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(seed), dev)
-    state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps))
+    state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
     print(f"[stage1] model init: {time.time() - t_init:.1f}s")
 
     t_up = time.time()
@@ -421,9 +434,10 @@ def train_stage2(
     and dropouts come from a generator seeded ``seed + 1``. With ``metrics``
     each validation scores ``val_n_samples`` series sampled from the priors
     as they are, from a generator seeded ``10_000 + step`` (module
-    docstring). The step bundles, bf16 moments and tensor parallelism of the
-    JAX runner are not ported and raise ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1)
+    docstring). ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16.
+    The step bundles (``bundle_steps`` > 1) and tensor parallelism (``tp`` >
+    1) of the JAX runner are not ported and raise ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1)
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
@@ -435,7 +449,7 @@ def train_stage2(
 
     t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
                            torch.Generator().manual_seed(seed), dev)
-    state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps))
+    state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     start_step = _resume(save_path, resume, state, gen, "stage2")
     y_dev = torch.from_numpy(data.y_train).to(dev)
@@ -509,15 +523,17 @@ def train_stage3(
     checkpoint's path) each validation scores ``val_n_samples``
     series sampled from those priors, from a generator seeded ``20_000 +
     step``, raw and through the enhancer as it is (module docstring); with
-    ``metrics`` alone it scores nothing, as in JAX. The step bundles,
-    reduced precision and tensor parallelism of the JAX runner are not
-    ported and raise ``NotImplementedError``. So does
+    ``metrics`` alone it scores nothing, as in JAX. ``compute_dtype`` and
+    ``fast_norm`` go to the enhancer, ``bf16_mu``/``bf16_nu`` to the
+    optimizer; the frozen stage 1 stays as it was loaded (float32 from the
+    CLI, as in JAX). The step bundles (``bundle_steps`` > 1) and tensor
+    parallelism (``tp`` > 1) of the JAX runner are not ported and raise
+    ``NotImplementedError``. So does
     ``percept_loss_weight`` > 0: the JAX runner hands its steps no
     ``percept_fn`` and so trains such a config without the term; the port
     refuses it rather than do the same (``train/stage3.py`` takes the
     term)."""
-    _unported(bundle_steps=bundle_steps > 1, compute_dtype=compute_dtype != "float32",
-              fast_norm=fast_norm, bf16_mu=bf16_mu, bf16_nu=bf16_nu, tp=tp > 1)
+    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1)
     if cfg.fidelity_enhancer.percept_loss_weight > 0.0:
         raise NotImplementedError(
             "percept_loss_weight > 0: the JAX runner passes its stage-3 steps no percept_fn "
@@ -534,9 +550,10 @@ def train_stage3(
     precompute = tau == 0.0
     step_fn = make_stage3_train_step_pre() if precompute else make_stage3_train_step(frozen, tau)
 
-    fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels),
+    fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
+                                                  compute_dtype, fast_norm),
                      torch.Generator().manual_seed(seed), dev)
-    state = create_stage3_state(fe, _adamw(cfg, max_steps))
+    state = create_stage3_state(fe, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     start_step = _resume(save_path, resume, state, gen, "stage3")
     X_dev = torch.from_numpy(data.X_train).to(dev)
