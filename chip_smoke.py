@@ -83,7 +83,23 @@ It needs no JAX and no network. Phases, each fatal on failure:
      each adds; ``train_stage3`` over phase 8's stage 1 with a bfloat16
      stream and ``fast_norm`` for 10 steps (ms per step, the memory it
      adds). Its VQ launches are ``launches_by_path.bf16``.
- 13. ckpt: each checkpoint's bytes, write and read seconds; one
+ 13. ess: the ESS sampler (naive LF decode, token critic, critical reverse
+     sampling, critic-guided re-decode, HF pass) of a seeded small model on
+     the card against the CPU with the same noise (confidences within
+     1e-5, t_star and tokens equal, series within 2e-4 of their scale);
+     then, the counters set to 0 again, phase 4's seeded published-width
+     weights with ``MaskGIT.ESS.use``: ms per 32-batch beside the plain
+     sampler's, prior forwards a batch, device busy over one batch, and no
+     VQ launch (ESS decodes through the codebook lookup).
+ 14. quality: the counters set to 0 again, the port's quality run
+     (``scripts/quality_run.py::run``: the JAX tool's synthetic set, L=512,
+     hid_dim 64, through the train CLI with ``--bf16`` and its defaults,
+     then the FID ladder with ROCKET features, and ``--ess``) at cut
+     budgets (20/40/10 steps, 64 series scored): every SUMMARY key of the
+     JAX tool, finite, ``fid_noise`` above ``fid_floor``, FID_rec through
+     the VQ kernel (2 launches). The kernel phase holds the kernel at this
+     geometry's D=64 shapes too.
+ 15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
      published width against the in-memory sampler of the trained states
@@ -94,7 +110,7 @@ It needs no JAX and no network. Phases, each fatal on failure:
      finite, in original units), then the evaluate CLI (the JAX package's
      result names, finite); both run beside the untimed checks below, which
      wait for them before the timed ones.
- 14. checks after the counted runs: the reconstruct tokens against the
+ 16. checks after the counted runs: the reconstruct tokens against the
      plain VQ version; a small model on the card against the same model on
      the CPU (plain versions) with the same weights and noise, sampling and
      three training steps of each stage; one more published-width training
@@ -112,7 +128,7 @@ It needs no JAX and no network. Phases, each fatal on failure:
      bfloat16 on the card against the CPU (samples, a stage-1 step and an
      enhancer step); a small stage 1 resumed from its snapshot against the
      same run straight through.
- 15. profile: device time by kernel and the device's idle share over one
+ 17. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage,
      one FCN step and one 32-series ROCKET featurisation (torch.profiler).
 
@@ -142,9 +158,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # M = 27 or 108 tokens a series times 16 (a stage-2 batch), 32 (serving,
-# stage 1) or 64 (the stage-2 sweep); then the K sweep
+# stage 1) or 64 (the stage-2 sweep); then the K sweep; then the quality
+# run's geometry (L=512, hid_dim 64: 24 and 96 tokens a series) at 32 (its
+# stage-1 step and x' sweep) and 64 (its token sweep and reconstruct)
 KERNEL_SHAPES = [(432, 32, 128), (864, 32, 128), (1728, 32, 128), (3456, 32, 128),
-                 (6912, 32, 128), (3456, 512, 128), (3456, 2048, 128)]
+                 (6912, 32, 128), (3456, 512, 128), (3456, 2048, 128),
+                 (768, 32, 64), (1536, 32, 64), (3072, 32, 64), (6144, 32, 64)]
 CHECK_SHAPES = KERNEL_SHAPES + [(865, 33, 20)]  # a ragged shape: 4-byte copies, padded dims
 MAIN_SHAPE = (3456, 32, 128)  # the HF call of a 32-batch, the larger of the two per batch
 B, C, L, N_CLASSES = 32, 4, 4633, 5
@@ -176,6 +195,11 @@ CONV_OPS = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
 PRODUCTION = dict(compute_dtype="bfloat16", fast_bn=True, bf16_mu=True, bf16_head=True)
 BF16_STACK, BF16_PUBLISHED = 0.06, 0.30
 BF16_TRAIN_STEPS, BF16_STAGE3_STEPS, BF16_TIMED_STEPS = 20, 10, 4
+# [ess]: the small model's LF steps (a moving-average window of 2), the
+# published-width batches timed; [quality]: the quality run's cut budgets
+# and its number of series scored
+ESS_SMALL_T, ESS_BATCHES = 8, 4
+QUALITY_STEPS, QUALITY_EVAL = {"stage1": 20, "stage2": 40, "stage3": 10}, 64
 SMALL_CFG = {
     "encoder": {"init_dim": 4, "hid_dim": 16, "n_resnet_blocks": 1,
                 "downsampled_width": {"lf": 4, "hf": 8}},
@@ -1849,6 +1873,132 @@ def stage1_twin(torch, state, tx, **spec_kw):
     return create_stage1_state(model, state.vq_l, state.vq_h, tx)
 
 
+def ess_noise(torch, spec, n, rng):
+    """One ``iterative_decoding_ess`` noise dict for a batch of ``n``: the
+    LF and HF passes' draws (``gumbel_noise``) and the re-decode's."""
+    noise = gumbel_noise(torch, spec, n, rng)
+    noise["crit"] = tuple(torch.from_numpy(
+        -np.log(-np.log(rng.uniform(1e-12, 1.0, size)))).float()
+        for size in ((spec.T_l - 1, n, spec.tokens_l, spec.mask_token_l),
+                     (spec.T_l - 1, n, spec.tokens_l)))
+    return noise
+
+
+def small_ess_check(torch, devices=("cpu", "cuda")):
+    """The ESS sampler of one seeded small model on the CPU and on the card
+    with the same noise: the confidences within 1e-5, t_star and the tokens
+    equal, the series within 2e-4 of their scale."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+    from tvqvae_tpu_torch.models.maskgit import compute_confidence_score, iterative_decoding_ess
+
+    cfg = Config.from_dict({**SMALL_CFG, "MaskGIT": {
+        **SMALL_CFG["MaskGIT"], "T": {"lf": ESS_SMALL_T, "hf": 1}, "ESS": {"use": True}}})
+    Ls, n = 127, 6
+    ref, dut = (TrainedModelSampler.from_init(cfg, Ls, C, 3, seed=3, device=d, batch_size=n)
+                for d in devices)
+    noise = ess_noise(torch, ref.mg_spec, n, np.random.default_rng(11))
+    outs = []
+    with torch.inference_mode():
+        for s in (ref, dut):
+            apply_l = lambda a, c, s=s: s.t_l(a, None, c)  # noqa: E731
+            s_l, s_h, t_star = iterative_decoding_ess(
+                s.mg_spec, apply_l, lambda a, b, c, s=s: s.t_h(a, b, c), s.frozen.vq_l.embed,
+                n, 1, device=s.device, noise=noise)
+            cond = torch.full((n, 1), 1, dtype=torch.int32, device=s.device)
+            s_ref = torch.as_tensor(outs[0][1] if outs else s_l.cpu()).to(s.device)
+            conf = compute_confidence_score(apply_l, s_ref, s.mg_spec.mask_token_l,
+                                            s.frozen.vq_l.embed, cond)
+            outs.append((t_star, s_l.cpu(), s_h.cpu(), conf.cpu()))
+    conf_err = float((outs[1][3] - outs[0][3]).abs().max())
+    check(conf_err <= 1e-5, f"small ESS: card vs CPU confidences off by {conf_err}")
+    check(outs[0][0] == outs[1][0], f"small ESS: t_star {outs[1][0]} on the card, "
+                                    f"{outs[0][0]} on the CPU")
+    check(torch.equal(outs[0][1], outs[1][1]) and torch.equal(outs[0][2], outs[1][2]),
+          "small ESS: card vs CPU tokens differ")
+    x_ref, x_dut = (s.sample(n, "conditional", class_index=1, noise=[noise])[2] for s in (ref, dut))
+    err = rel_gap(x_dut, x_ref)
+    check(err <= 2e-4, f"small ESS: card vs CPU series off by {err} of their scale")
+    print(f"[ess] small model card vs CPU: t_star {outs[0][0]} on both, confidences within "
+          f"{conf_err:.3g}, tokens equal, series within {err:.3g} of their scale", flush=True)
+
+
+def ess_phase(torch, vq_kernel, wall_ms, device="cuda"):
+    """The small card-vs-CPU check; then, the counters set to 0, the ESS
+    sampler of phase 4's seeded published-width weights (``ess_use``):
+    ms per 32-batch beside the plain sampler's, the prior forwards a batch,
+    the device's busy ms over one batch, and no VQ launch (ESS decodes
+    through the codebook lookup). -> its VQ launches (0)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+
+    small_ess_check(torch, devices=("cpu", device))
+    sampler = TrainedModelSampler.from_init(Config.from_dict({"MaskGIT": {"ESS": {"use": True}}}),
+                                            L, C, N_CLASSES, seed=0, device=device, batch_size=B)
+    check(sampler.use_ess, "the ESS config did not reach the sampler")
+    sampler.sample(B, seed=100)  # warm-up
+    forwards = []
+    hooks = [m.register_forward_pre_hook(lambda *_: forwards.append(1))
+             for m in (sampler.t_l, sampler.t_h)]
+    vq_kernel.launch_count = 0
+    try:
+        t0 = time.perf_counter()
+        _, _, x = sampler.sample(ESS_BATCHES * B, seed=1)
+        ms = 1e3 * (time.perf_counter() - t0) / ESS_BATCHES
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = vq_kernel.launch_count
+    check(x.shape == (ESS_BATCHES * B, C, L) and bool(np.isfinite(x).all()), "bad ESS samples")
+    check(launches == 0, f"the ESS sampler launched the VQ kernel {launches} times")
+    _, events = device_events(torch, lambda: sampler.sample(B, seed=5))
+    busy = sum(d for _, d in events) / 1e3 if events else None
+    print(f"[ess] published width, B={B}: {ms:.2f} ms per {B}-batch (the plain sampler "
+          f"{wall_ms['sample']:.2f} ms), {len(forwards) / ESS_BATCHES:.1f} prior forwards a "
+          f"batch (plain: {sampler.mg_spec.T_l + sampler.mg_spec.T_h}), device busy "
+          f"{'not measured' if busy is None else f'{busy:.2f} ms'} over one batch, "
+          f"VQ launches {launches}", flush=True)
+    return launches
+
+
+def quality_phase(torch, vq_kernel, work, device="cuda"):
+    """The counters set to 0, the port's quality run
+    (``scripts/quality_run.py::run``) on the card at cut budgets
+    (QUALITY_STEPS, validations of QUALITY_EVAL series) with ``--bf16
+    --ess``, scoring QUALITY_EVAL series: every SUMMARY key of the JAX
+    tool, finite; the noise rung above the floor; FID_rec through the VQ
+    kernel (2 launches per 64 series). -> its VQ launches."""
+    from tvqvae_tpu_torch.scripts import quality_run
+
+    cut = json.loads(json.dumps(quality_run.CFG_OVERRIDES))
+    cut["trainer_params"] = {"max_steps": dict(QUALITY_STEPS),
+                             "val_check_interval": dict(QUALITY_STEPS)}
+    cut["evaluation"]["min_num_gen_samples"] = QUALITY_EVAL
+    args = quality_run.build_argparser().parse_args(
+        ["--workdir", os.path.join(work.root, "qr"), "--bf16", "--ess", "--n_eval",
+         str(QUALITY_EVAL), "--device", device])
+    vq_kernel.launch_count = 0
+    summary, details = quality_run.run(args, overrides=cut)
+    launches = vq_kernel.launch_count
+    check(set(summary) == set(quality_run.SUMMARY_KEYS) | {"ess_ms_per_32batch", "fid_gen_ess"},
+          f"SUMMARY keys {sorted(summary)}")
+    bad = [k for k, v in summary.items() if not isinstance(v, bool) and not np.isfinite(v)]
+    check(not bad, f"non-finite SUMMARY values {bad}")
+    check(summary["fid_noise"] > summary["fid_floor"],
+          f"fid_noise {summary['fid_noise']} not above fid_floor {summary['fid_floor']}")
+    rec = details["vq_launches"]["rec"]
+    check(rec == 2 * -(-QUALITY_EVAL // 64), f"FID_rec launched the VQ kernel {rec} times")
+    check(launches == details["vq_launches"]["train"] + rec and launches > rec,
+          f"quality-run VQ launches {launches} against {details['vq_launches']}")
+    print(f"[quality] {QUALITY_STEPS} steps, n_eval {QUALITY_EVAL}: " + ", ".join(
+        f"{k} {summary[k]:.5f}" for k in ("fid_floor", "fid_rec", "fid_gen", "fid_gen_fe",
+                                          "fid_gen_ess", "fid_noise"))
+          + f"; ESS {summary['ess_ms_per_32batch']:.2f} ms per 32-batch; minutes by stage "
+          f"{ {k: round(v, 3) for k, v in details['stage_minutes'].items()} }, median ms a step "
+          f"{details['step_ms_p50']}; VQ launches {launches} ({rec} in FID_rec)", flush=True)
+    return launches
+
+
 def bf16_phase(torch, vq_kernel, work, sampler, series, rec32, wall_ms, data, frozen, trained,
                f32, device="cuda"):
     """The JAX package's production recipe under ``--bf16`` at the published
@@ -2297,6 +2447,10 @@ def smoke(torch, work, t_start):
                                frozen, trained, dict(train_ms=step_ms, train_gb=train_gb,
                                             stage3_ms=stage3_ms, stage3_gb=stage3_gb))
     lap("bf16")
+    ess_launches = ess_phase(torch, vq_kernel, wall_ms)
+    lap("ess")
+    quality_launches = quality_phase(torch, vq_kernel, work)
+    lap("quality")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -2368,10 +2522,12 @@ def smoke(torch, work, t_start):
         "source": "tvqvae_tpu_torch/csrc/vq_nearest.cu",
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
-                     + eval_launches + bf16_launches + ckpt_launches),
+                     + eval_launches + bf16_launches + ess_launches + quality_launches
+                     + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
+                             "ess": ess_launches, "quality": quality_launches,
                              "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],

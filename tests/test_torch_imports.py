@@ -46,7 +46,8 @@ def test_importing_every_submodule_pulls_in_no_jax():
 def test_the_scan_covers_the_clis_and_the_checkpoint_io():
     assert {"tvqvae_tpu_torch.scripts.train", "tvqvae_tpu_torch.scripts.train_fcn",
             "tvqvae_tpu_torch.scripts.generate", "tvqvae_tpu_torch.scripts.serve",
-            "tvqvae_tpu_torch.scripts.evaluate", "tvqvae_tpu_torch.evaluation.metrics",
+            "tvqvae_tpu_torch.scripts.evaluate", "tvqvae_tpu_torch.scripts.quality_run",
+            "tvqvae_tpu_torch.evaluation.metrics",
             "tvqvae_tpu_torch.evaluation.isolation_forest",
             "tvqvae_tpu_torch.utils.checkpoint", "tvqvae_tpu_torch.utils.logging"} <= set(_modules())
 

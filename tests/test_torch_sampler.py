@@ -226,16 +226,24 @@ def test_cuda_device_raises_without_cuda(monkeypatch):
     {"ess": True},
 ])
 def test_unported_options_raise(world, fe_world, kw):
-    """ESS is not ported and raises ``NotImplementedError``. The fidelity
-    enhancer is: a well-formed stage3 tree builds (and stays off unless asked
-    for), and ``use_fidelity_enhancer`` without one raises ``ValueError``, as
-    the JAX sampler does. bfloat16 decoding is ported: the sampler builds
-    with the JAX sampler's bfloat16 defaults (``bf16_head``, ``bf16_istft``)
-    in its stage-1 spec and its enhancer's stream
-    (``tests/test_torch_precision_paths.py`` holds it against JAX)."""
+    """Every option of the JAX sampler is ported. The ESS sampler is: a
+    config with ``MaskGIT.ESS.use`` builds a sampler with ``use_ess``
+    that samples (``tests/test_torch_ess.py`` holds it against JAX). The
+    fidelity enhancer is: a well-formed stage3 tree builds (and stays off
+    unless asked for), and ``use_fidelity_enhancer`` without one raises
+    ``ValueError``, as the JAX sampler does. bfloat16 decoding is ported:
+    the sampler builds with the JAX sampler's bfloat16 defaults
+    (``bf16_head``, ``bf16_istft``) in its stage-1 spec and its enhancer's
+    stream (``tests/test_torch_precision_paths.py`` holds it against JAX)."""
     cfg_dict = dict(CFG)
     if kw.pop("ess", False):
         cfg_dict["MaskGIT"] = {**CFG["MaskGIT"], "ESS": {"use": True}}
+        s = TrainedModelSampler(Config.from_dict(cfg_dict), *_trees(world), input_length=L,
+                                in_channels=C, n_classes=N_CLASSES, device="cpu")
+        assert s.use_ess and s._ess_rate == 0.3
+        x = s.sample(2, "conditional", class_index=0, seed=1)[2]
+        assert x.shape == (2, C, L) and np.isfinite(x).all()
+        return
     if kw.get("stage3") == "seeded":
         s = TrainedModelSampler(Config.from_dict(cfg_dict), *_trees(world), input_length=L,
                                 in_channels=C, n_classes=N_CLASSES, device="cpu",
@@ -253,8 +261,7 @@ def test_unported_options_raise(world, fe_world, kw):
         x = s.sample(2, "conditional", class_index=0, seed=1)[2]
         assert x.dtype == np.float32 and np.isfinite(x).all()
         return
-    error = ValueError if kw.get("use_fidelity_enhancer") else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         TrainedModelSampler(Config.from_dict(cfg_dict), {}, {}, input_length=L,
                             in_channels=C, n_classes=N_CLASSES, device="cpu", **kw)
 

@@ -25,8 +25,14 @@ The three constructors take the JAX sampler's precision options:
 enhancer's stream), ``fast_bn`` (stage 1's fast BatchNorm and the enhancer's
 fast GroupNorm), and ``bf16_head`` and ``bf16_istft``, on by default and
 inert at float32, as in JAX. The priors stay float32, so the sampled tokens
-do not depend on them. The ESS sampler is not ported and raises
-``NotImplementedError``.
+do not depend on them.
+
+With ``cfg.maskgit.ess_use`` every batch runs the ESS sampler
+(``train/stage2.make_ess_sampling_fn``, moving-average rate
+``cfg.maskgit.ess_error_ratio_ma_rate``) from any constructor. Its step
+retraction takes one ``t_star`` per batch, so an ESS batch is always
+``batch_size`` samples, the last one cut to what was asked, as the JAX
+sampler batches.
 """
 
 from typing import Mapping, Optional, Sequence, Tuple
@@ -44,7 +50,12 @@ from tvqvae_tpu_torch.models.maskgit import (
 )
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
-from tvqvae_tpu_torch.train.stage2 import init_stage2, make_sampling_fn, priors_from_tree
+from tvqvae_tpu_torch.train.stage2 import (
+    init_stage2,
+    make_ess_sampling_fn,
+    make_sampling_fn,
+    priors_from_tree,
+)
 from tvqvae_tpu_torch.train.stage3 import init_stage3
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
 from tvqvae_tpu_torch.utils.convert import fe_from_jax, stage1_from_jax
@@ -52,8 +63,6 @@ from tvqvae_tpu_torch.utils.device import resolve_device
 
 
 class TrainedModelSampler:
-    use_ess = False
-
     def __init__(
         self,
         cfg: Config,
@@ -74,8 +83,6 @@ class TrainedModelSampler:
     ):
         if use_fidelity_enhancer and stage3 is None:
             raise ValueError("use_fidelity_enhancer=True needs a stage3 tree")
-        if cfg.maskgit.ess_use:
-            raise NotImplementedError("the ESS sampler is not ported yet")
         dev = resolve_device(device)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels, compute_dtype=compute_dtype,
                                       fast_bn=fast_bn, bf16_head=bf16_head, bf16_istft=bf16_istft)
@@ -149,7 +156,11 @@ class TrainedModelSampler:
         self.mg_spec = MaskGITSpec.from_config(cfg, spec)
         self.frozen = frozen
         self.t_l, self.t_h = t_l.to(device).eval(), t_h.to(device).eval()
-        self._sample_tokens = make_sampling_fn(frozen, self.t_l, self.t_h, self.mg_spec)
+        self.use_ess = bool(cfg.maskgit.ess_use)
+        self._ess_rate = float(cfg.maskgit.ess_error_ratio_ma_rate)
+        self._sample_tokens = (
+            make_ess_sampling_fn(frozen, self.t_l, self.t_h, self.mg_spec, self._ess_rate)
+            if self.use_ess else make_sampling_fn(frozen, self.t_l, self.t_h, self.mg_spec))
         self.fe = None if fe is None else fe.to(device).eval()
         self.use_fe = use_fe
         self.tau = 0.0
@@ -168,7 +179,7 @@ class TrainedModelSampler:
         """Batched sampling; returns (x_l, x_h, x) host arrays (n, C, L), ``x``
         through the fidelity enhancer when it is on. ``noise``, when given,
         holds one ``iterative_decoding`` noise dict per batch in place of the
-        seeded draws."""
+        seeded draws (``iterative_decoding_ess``'s dict with ESS)."""
         if kind not in ("unconditional", "conditional"):
             raise ValueError(f"kind must be 'unconditional' or 'conditional', got {kind!r}")
         if kind == "conditional":
@@ -181,8 +192,10 @@ class TrainedModelSampler:
         outs = ([], [], [])
         for i, start in enumerate(range(0, n_samples, bs)):
             b = min(bs, n_samples - start)
-            x_l, x_h, x = self._sample_tokens(b, class_index, generator=gen,
+            x_l, x_h, x = self._sample_tokens(bs if self.use_ess else b, class_index,
+                                              generator=gen,
                                               noise=None if noise is None else noise[i])
+            x_l, x_h, x = x_l[:b], x_h[:b], x[:b]
             if self.use_fe:
                 x = self._enhance(x)
             for acc, t in zip(outs, (x_l, x_h, x)):

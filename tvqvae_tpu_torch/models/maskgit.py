@@ -1,7 +1,7 @@
 """MaskGIT prior: training-time masking and iterative parallel decoding
 over a frozen stage 1.
 
-Port of ``tvqvae_tpu/models/maskgit.py`` without the ESS sampler:
+Port of ``tvqvae_tpu/models/maskgit.py``:
 
   - ``FrozenStage1`` bundles the eval-mode stage-1 model with its two
     codebooks; ``encode_tokens``/``decode_tokens`` run through it.
@@ -19,8 +19,15 @@ Port of ``tvqvae_tpu/models/maskgit.py`` without the ESS sampler:
     confidence noise is ``_gumbel`` (uniforms from 1e-20). A caller passes a
     ``torch.Generator``, or ``noise`` with the draws themselves (the parity
     tests hand in JAX's).
-
-The ESS sampler is not ported yet.
+  - the ESS sampler (``iterative_decoding_ess``): the naive LF decode, the
+    token critic's confidences (``compute_confidence_score``), the step
+    retraction (``critical_reverse_sampling``) and the critic-guided
+    re-decode (``decode_with_token_critic``). JAX's ``lax.scan`` loops are
+    Python loops over t, and its ``lax.cond`` skips a host-side ``break``
+    (one ``.item()`` a step) or a start index. The retraction's error is
+    summed over the whole batch, so one ``t_star`` serves every sample of a
+    batch. Its mask lengths are JAX's float32 arithmetic
+    (``ess_mask_len``), not ``decode_schedule``'s float64 tables.
 """
 
 from dataclasses import dataclass
@@ -61,6 +68,18 @@ def decode_schedule(num_tokens: int, T: int, choice_temp: float, mode: str):
     mask_lens = np.clip(np.floor(num_tokens * gamma_fn(mode)(ratios)), 0, None).astype(np.int32)
     temps = (choice_temp * (1.0 - ratios)).astype(np.float32)
     return mask_lens, temps
+
+
+def ess_mask_len(num_tokens: int, tf: float, T: int, mode: str = "cosine") -> int:
+    """``clip(floor(num_tokens * gamma(tf / T)), 0)`` in float32, as the JAX
+    ESS functions compute it at run time; on the host, so that the card and
+    the CPU take the same lengths."""
+    r = torch.tensor(tf, dtype=torch.float32) / T
+    if mode == "cosine":
+        g = torch.cos(r * math.pi / 2.0)
+    else:  # the polynomial schedules: numpy's formulas on a float32 tensor
+        g = gamma_fn(mode)(r)
+    return max(int(torch.floor(num_tokens * g)), 0)
 
 
 def _rank(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -321,3 +340,176 @@ def iterative_decoding(
         generator=generator, noise=noise.get("h"),
     )
     return s_l, s_h
+
+
+# --------------------------------------------------------------------------
+# ESS: the enhanced sampling scheme (JAX ``models/maskgit.py:322-550``)
+
+
+def compute_confidence_score(
+    apply_fn: Callable,
+    s: torch.Tensor,
+    mask_token: int,
+    embed: torch.Tensor,
+    class_condition: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-token self-critic confidence: for each position i, mask it,
+    predict it, score ``-||E[s_i] - E[pred_i]||^2``, and softmax over the
+    positions. The n variants run as one (n*b, n) batch, variant-major
+    (the class condition tiled, not interleaved). -> (b, n) float32."""
+    b, n = s.shape
+    eye = torch.eye(n, dtype=torch.bool, device=s.device)
+    variants = torch.where(eye[:, None, :], torch.full_like(s, mask_token)[None], s[None])
+    cond = class_condition.repeat(n, 1) if class_condition is not None else None
+    logits = apply_fn(variants.reshape(n * b, n), cond)  # (n*b, n, K)
+    logits = logits.reshape(n, b, n, logits.shape[-1])
+    pos = torch.arange(n, device=s.device)
+    pred = logits[pos, :, pos].argmax(-1)  # (n, b): position i of variant i
+    emb = embed.float()
+    dist = ((emb[s.T.long()] - emb[pred]) ** 2).sum(-1)  # (n, b)
+    return torch.softmax(-dist.T, dim=-1)
+
+
+def critical_reverse_sampling(
+    apply_fn: Callable,
+    s: torch.Tensor,
+    confidence_scores: torch.Tensor,
+    mask_token: int,
+    T: int,
+    num_tokens: int,
+    embed: torch.Tensor,
+    class_condition: Optional[torch.Tensor] = None,
+    error_ratio_ma_rate: float = 0.3,
+    mode: str = "cosine",
+) -> Tuple[int, torch.Tensor]:
+    """Step retraction: walk back from t = T-1, re-masking the least
+    confident tokens, until the prediction error of the tokens revealed at
+    t stops improving. -> (t_star, s_star).
+
+    Stops at the first t where the schedule plateaus (no forward), where
+    the moving average over the last ``w`` error ratios exceeds 1, or at
+    t = 1; with T <= 1 it returns t_star = 1 and the t = 2 schedule's
+    re-masking. The first forward (t = T-1) only seeds the previous error.
+    The error is summed over the whole batch: one t_star per batch."""
+    w = max(1, round(T * error_ratio_ma_rate))  # Python's round, as JAX
+    conf_rank = _rank(confidence_scores, dim=-1)
+    emb = embed.float()
+    z_true = emb[s.long()]
+    mask = torch.full_like(s, mask_token)
+
+    def ml(tf: float) -> int:
+        return ess_mask_len(num_tokens, tf, T, mode)
+
+    ring = torch.zeros(w, dtype=torch.float32, device=s.device)
+    prev = torch.zeros((), dtype=torch.float32, device=s.device)
+    count = 0
+    for t in range(T - 1, 0, -1):
+        ml_t, ml_tm1 = ml(t + 1.0), ml(float(t))
+        masking_t = conf_rank < ml_t
+        # the plateau stops before a forward; at t = 1 JAX's forward only
+        # feeds a stop that is already decided, so it is skipped here
+        stop = ml_t == ml_tm1 or t == 1
+        if not stop:
+            masking_tm1 = conf_rank < ml_tm1
+            logits = apply_fn(torch.where(masking_tm1, mask, s), class_condition)
+            sq = ((z_true - emb[logits.argmax(-1)]) ** 2).sum(-1)
+            interest = masking_tm1 & ~masking_t  # revealed at t
+            err = (torch.where(interest, sq, torch.zeros_like(sq)).sum()
+                   / interest.sum().clamp_min(1))
+            if t != T - 1:  # the first forward only seeds prev
+                ring[count % w] = err / (prev + 1e-5)
+                count += 1
+                n_valid = min(count, w)
+                stop = bool(ring[:n_valid].sum() / n_valid > 1.0)
+            prev = err
+        if stop:
+            return t, torch.where(masking_t, mask, s)
+    return 1, torch.where(conf_rank < ml(2.0), mask, s)
+
+
+def decode_with_token_critic(
+    apply_fn: Callable,
+    s: torch.Tensor,
+    t_star: int,
+    mask_token: int,
+    T: int,
+    num_tokens: int,
+    choice_temp: float,
+    embed: torch.Tensor,
+    class_condition: Optional[torch.Tensor] = None,
+    mode: str = "cosine",
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Resume decoding at t = t_star .. T-1 with the token critic's
+    confidences: each step resamples every position from the prior, scores
+    the sample with ``compute_confidence_score``, and re-masks the least
+    confident by the float32 schedule. ``noise``, when given, is
+    (g_sample (T-1, B, n, K), g_confidence (T-1, B, n)), row t-1 for step t;
+    rows before t_star are not read."""
+    for t in range(max(int(t_star), 1), T):
+        logits = apply_fn(s, class_condition)
+        if noise is None:
+            g_sample = gumbel(logits.shape, generator, logits.device)
+            g_conf = _gumbel(s.shape, generator, logits.device)
+        else:
+            g_sample, g_conf = (n[t - 1].to(logits.device) for n in noise)
+        sampled = (logits + g_sample).argmax(-1).to(s.dtype)
+        conf = compute_confidence_score(apply_fn, sampled, mask_token, embed, class_condition)
+        ratio = (torch.tensor(float(t), dtype=torch.float32) + 1.0) / T
+        ml = ess_mask_len(num_tokens, float(t) + 1.0, T, mode)
+        temp = float(choice_temp * (1.0 - ratio))  # float32, as JAX's
+        confidence = torch.log(conf + 1e-5) + temp * g_conf
+        s = torch.where(_rank(confidence, dim=-1) < ml, torch.full_like(sampled, mask_token),
+                        sampled)
+    return s
+
+
+def iterative_decoding_ess(
+    spec: MaskGITSpec,
+    apply_l: Callable,  # (s_l, class_condition) -> logits
+    apply_h_given: Callable,  # (s_l, s_h, class_condition) -> logits
+    embed_l: torch.Tensor,
+    num: int,
+    class_index: Optional[int] = None,
+    error_ratio_ma_rate: float = 0.3,
+    mode: str = "cosine",
+    *,
+    device,
+    generator: Optional[torch.Generator] = None,
+    noise: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Naive LF decode (``decode_band_scan``, with classifier-free
+    guidance) -> the critic's confidences -> critical reverse sampling ->
+    the critic-guided re-decode (no guidance: the critic calls ``apply_l``)
+    -> the standard HF pass. -> (s_l, s_h, t_star). ``noise`` is {"l":
+    ..., "crit": ..., "h": ...}: the LF and HF passes' draws as
+    ``decode_band_scan`` takes them and the re-decode's as
+    ``decode_with_token_critic`` takes them."""
+    cond = (
+        torch.full((num, 1), class_index, dtype=torch.int32, device=device)
+        if class_index is not None else None
+    )
+    noise = noise or {}
+    s_l = torch.full((num, spec.tokens_l), spec.mask_token_l, dtype=torch.int32, device=device)
+    s_l = decode_band_scan(
+        apply_l, s_l, spec.mask_token_l, spec.T_l, spec.tokens_l,
+        spec.choice_temp_l, spec.cfg_scale, cond, mode,
+        generator=generator, noise=noise.get("l"),
+    )
+    conf = compute_confidence_score(apply_l, s_l, spec.mask_token_l, embed_l, cond)
+    t_star, s_star = critical_reverse_sampling(
+        apply_l, s_l, conf, spec.mask_token_l, spec.T_l, spec.tokens_l, embed_l, cond,
+        error_ratio_ma_rate, mode,
+    )
+    s_l = decode_with_token_critic(
+        apply_l, s_star, t_star, spec.mask_token_l, spec.T_l, spec.tokens_l,
+        spec.choice_temp_l, embed_l, cond, mode, generator=generator, noise=noise.get("crit"),
+    )
+    s_h = torch.full((num, spec.tokens_h), spec.mask_token_h, dtype=torch.int32, device=device)
+    s_h = decode_band_scan(
+        lambda s, c: apply_h_given(s_l, s, c), s_h, spec.mask_token_h, spec.T_h,
+        spec.tokens_h, spec.choice_temp_h, spec.cfg_scale, cond, mode,
+        generator=generator, noise=noise.get("h"),
+    )
+    return s_l, s_h, t_star

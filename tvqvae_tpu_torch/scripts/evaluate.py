@@ -103,7 +103,7 @@ def build_argparser():
                    choices=[None, "rocket", "supervised_fcn"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fid_method", type=str, default="schur", choices=("schur", "svd"),
-                   help="schur = reference-exact scipy sqrtm; svd = exact trace identity, "
+                   help="schur = the reference's Schur trace; svd = exact trace identity, "
                         "far faster at the 2000-wide ROCKET features")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p

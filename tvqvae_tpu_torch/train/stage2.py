@@ -16,7 +16,8 @@ JAX's step is a pure function of the state; here the state holds the two
 priors and the optimizer, which the step updates in place (the HF prior's
 BatchNorm buffers are JAX's ``h_stats``). Metrics stay on the device as
 0-dim tensors. JAX passes every parameter tree to the sampler as a jit
-argument; here ``make_sampling_fn`` closes over the modules.
+argument; here ``make_sampling_fn`` and ``make_ess_sampling_fn`` close over
+the modules.
 """
 
 from dataclasses import dataclass
@@ -33,6 +34,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     decode_tokens,
     encode_tokens,
     iterative_decoding,
+    iterative_decoding_ess,
     masked_ce,
     random_mask_tokens,
 )
@@ -185,6 +187,41 @@ def make_sampling_fn(
         device = frozen.vq_l.embed.device
         s_l, s_h = iterative_decoding(
             spec, apply_l, apply_h, num, class_index,
+            device=device, generator=generator, noise=noise,
+        )
+        x_l = decode_tokens(frozen, s_l, "lf")
+        x_h = decode_tokens(frozen, s_h, "hf")
+        return x_l, x_h, x_l + x_h
+
+    return sample
+
+
+def make_ess_sampling_fn(
+    frozen: FrozenStage1,
+    t_l: BidirectionalTransformer,
+    t_h: BidirectionalTransformer,
+    spec: MaskGITSpec,
+    error_ratio_ma_rate: float = 0.3,
+) -> Callable:
+    """The ESS sampler, with ``make_sampling_fn``'s signature: the naive LF
+    decode, critical reverse sampling and the critic-guided re-decode
+    (``iterative_decoding_ess``), the HF pass, then the codebook lookup and
+    the frozen decoders of both bands. ``noise`` is
+    ``iterative_decoding_ess``'s {"l", "crit", "h"}. The critic scores with
+    the float32 LF codebook, whatever the stage-1 stacks' precision."""
+
+    def apply_l(s_l, cond):
+        return t_l(s_l, None, cond)
+
+    def apply_h(s_l, s_h, cond):
+        return t_h(s_l, s_h, cond)
+
+    @torch.inference_mode()
+    def sample(num: int, class_index: Optional[int] = None,
+               generator: Optional[torch.Generator] = None, noise: Optional[dict] = None):
+        device = frozen.vq_l.embed.device
+        s_l, s_h, _ = iterative_decoding_ess(
+            spec, apply_l, apply_h, frozen.vq_l.embed, num, class_index, error_ratio_ma_rate,
             device=device, generator=generator, noise=noise,
         )
         x_l = decode_tokens(frozen, s_l, "lf")
