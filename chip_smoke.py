@@ -8,10 +8,12 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 It needs no JAX and no network. Phases, each fatal on failure:
 
   1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda`` name, the
-     scipy version and whether scikit-learn is there (for the record: the
-     port never imports it).
-  2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc,
-     while the published-width sampler of phase 4 is built.
+     scipy version and whether scikit-learn, pandas and matplotlib are there
+     (for the record: the port never imports the first two; matplotlib draws
+     the flyability CLI's plot where it is importable).
+  2. build: every CUDA kernel from ``tvqvae_tpu_torch/csrc`` with nvcc, one
+     nvcc per source, all started together, while the published-width
+     sampler of phase 4 is built.
   3. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, the K sweep and one ragged shape, with times,
      device time per launched kernel (torch.profiler) and bounds.
@@ -95,10 +97,25 @@ It needs no JAX and no network. Phases, each fatal on failure:
      (``scripts/quality_run.py::run``: the JAX tool's synthetic set, L=512,
      hid_dim 64, through the train CLI with ``--bf16`` and its defaults,
      then the FID ladder with ROCKET features, and ``--ess``) at cut
-     budgets (20/40/10 steps, 64 series scored): every SUMMARY key of the
+     budgets (10/20/5 steps, 64 series scored): every SUMMARY key of the
      JAX tool, finite, ``fid_noise`` above ``fid_floor``, FID_rec through
      the VQ kernel (2 launches). The kernel phase holds the kernel at this
      geometry's D=64 shapes too.
+ 14b. flyability: the counters set to 0, the 14 trajectory distances of 66
+     synthetic flight pairs through ``calculate_trajectory_distances_batch``
+     on the card: 64 generated tracks of L=4633 points along the EHAM ->
+     LIMC great circle with smooth noise, each with a flown counterpart
+     shaped like a 10-s BlueSky log (every 8th point, 0.005 deg of noise;
+     bucket (5120, 1024)), and 2 pairs of 4633 points each (bucket (5120,
+     5120)): one launch of each kernel (``csrc/traj_dp.cu``,
+     ``csrc/frechet_decision.cu``) a bucket, wall ms, pairs/s, device ms a
+     launch (torch.profiler); then the DP kernel against its plain version
+     on 2 pairs of the first bucket (EDR and LCSS exactly, the discrete
+     Frechet 1e-6, DTW and ERP 1e-5 relative), SSPD and Hausdorff against
+     the plain matrices on the card and the CPU, and the Frechet kernel
+     against its plain version (its decision replayed from a CUDA graph) on
+     2 pairs of (1024, 512) points (1e-5 relative), each with ms, the plain
+     version's ms and the bound.
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -128,6 +145,12 @@ It needs no JAX and no network. Phases, each fatal on failure:
      bfloat16 on the card against the CPU (samples, a stage-1 step and an
      enhancer step); a small stage 1 resumed from its snapshot against the
      same run straight through.
+     Beside them, the flyability CLI (``python -m
+     tvqvae_tpu_torch.scripts.evaluate_flyability`` in a subprocess; its
+     CDF plot where the card has matplotlib) on the generate CLI's 64
+     series with the JAX tests' stub simulator: the simulated CSV, the
+     distances JSON with the 14 metrics, finite, one value per simulated
+     flight.
  17. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage,
      one FCN step and one 32-series ROCKET featurisation (torch.profiler).
@@ -139,11 +162,14 @@ a checkout (the package does not import), it exits 1 at once.
 """
 
 import contextlib
+import csv
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import sys
@@ -199,7 +225,66 @@ BF16_TRAIN_STEPS, BF16_STAGE3_STEPS, BF16_TIMED_STEPS = 20, 10, 4
 # published-width batches timed; [quality]: the quality run's cut budgets
 # and its number of series scored
 ESS_SMALL_T, ESS_BATCHES = 8, 4
-QUALITY_STEPS, QUALITY_EVAL = {"stage1": 20, "stage2": 40, "stage3": 10}, 64
+QUALITY_STEPS, QUALITY_EVAL = {"stage1": 10, "stage2": 20, "stage3": 5}, 64
+# [flyability]: FLY_PAIRS generated tracks of L points along the EHAM -> LIMC
+# great circle, each with a "flown" counterpart shaped like a 10-s BlueSky log
+# (every FLY_STRIDE-th point, ~0.005 deg of noise): the (5120, 1024) bucket;
+# FLY_LONG_PAIRS more at full length in both, the (5120, 5120) bucket. The
+# DP kernel is held to its plain version on FLY_CHECK_PAIRS pairs of the
+# first bucket, the Frechet kernel on FLY_CHECK_PAIRS pairs of exactly
+# FLY_FRECHET_SHAPE points (the plain Frechet at full length takes minutes).
+# Two more checks reach the launch plans of the full-length buckets that those
+# shapes do not: the Frechet's rows of 8 elements a thread, on pairs of
+# FLY_CHUNK8_ROWS x L points (the plain Frechet's cost grows with the rows),
+# and the DP's diagonals longer than a block's 1024 threads, on pairs of
+# FLY_WIDE x FLY_WIDE points.
+FLY_PAIRS, FLY_LONG_PAIRS, FLY_STRIDE, FLY_CHECK_PAIRS = 64, 2, 8, 2
+FLY_FRECHET_SHAPE = (1024, 512)
+FLY_CHUNK8_ROWS, FLY_WIDE = 64, 1100
+# fp32 operations per grid cell, a transcendental counted as one: the cost
+# (planar: 2 sub, 2 mul, 2 add, sqrt; spherical: 2 sub, 2 halvings, 2 sin, 2
+# squares, 2 mul, add, 2 clamps, sqrt, asin, mul) and each recurrence; the
+# Frechet decision's cell: two free intervals (4 sub, 6 mul, 3 add, max, 2
+# div, sub, mul, add, 2 compares, sqrt, sub, add, 2 clamps: 26 each) and
+# the map's compose and apply (8)
+DP_COST_OPS = {"euclidean": 7, "spherical": 16}
+DP_STEP_OPS = {"dtw": 3, "erp": 5, "edr": 6, "lcss": 4, "discret_frechet": 3}
+FRECHET_CELL_OPS = 2 * 26 + 8
+FLY_KERNELS = ("traj_dp_kernel", "frechet_kernel")  # csrc/traj_dp.cu, csrc/frechet_decision.cu
+# The JAX package's test stub for the BlueSky simulator
+# (tests/test_flyability.py:35-68): replays each flight's waypoints with a
+# fixed offset and writes an EVALLOG log into $STUB_LOGS_DIR.
+BLUESKY_STUB = """\
+#!/usr/bin/env python3
+import os, re, sys, time
+
+scen = sys.argv[sys.argv.index("--scenfile") + 1]
+logs_dir = os.environ["STUB_LOGS_DIR"]
+flights = {}
+with open(scen) as f:
+    for line in f:
+        m = re.search(r">PCALL (.*output_(.*)\\.scn)", line.strip())
+        if m:
+            flights[m.group(2)] = m.group(1)
+rows = []
+for fid, path in flights.items():
+    wpts = []
+    with open(path) as f:
+        for line in f:
+            m = re.search(r">CRE \\S+ \\S+ ([-\\d.]+) ([-\\d.]+)", line)
+            if m:
+                wpts.append((float(m.group(1)), float(m.group(2)), 10000.0))
+            m = re.search(r">DEFWPT \\S+?,([-\\d.]+), ([-\\d.]+)", line)
+            if m:
+                wpts.append((float(m.group(1)), float(m.group(2)), 10000.0))
+    for k, (lat, lon, alt) in enumerate(wpts):
+        rows.append(f"{k * 10.0},{lat + 0.001},{lon - 0.001},{alt},{fid}")
+os.makedirs(logs_dir, exist_ok=True)
+out = os.path.join(logs_dir, f"EVALLOG_{time.time_ns()}.log")
+with open(out, "w") as f:
+    f.write("# stub log\\n")
+    f.write("\\n".join(rows) + "\\n")
+"""
 SMALL_CFG = {
     "encoder": {"init_dim": 4, "hid_dim": 16, "n_resnet_blocks": 1,
                 "downsampled_width": {"lf": 4, "hf": 8}},
@@ -2327,6 +2412,382 @@ def small_model_check(torch, Config, TrainedModelSampler, devices=("cpu", "cuda"
           f"reconstruct err {rec_err:.3g}, tokens equal", flush=True)
 
 
+def fly_tracks(rng, n_pairs, length, stride, flown_noise=0.005):
+    """``n_pairs`` generated tracks of ``length`` [lat, lon] points along the
+    EHAM -> LIMC great circle (slerp of the endpoints' unit vectors) with
+    smooth noise (three low sines of ~0.03 deg), each with a flown
+    counterpart: every ``stride``-th point with ``flown_noise`` deg of
+    Gaussian noise. -> (gens, sims) lists of float32 arrays."""
+    from tvqvae_tpu_torch.data.preprocess import AIRPORTS
+
+    def unit(lat, lon):
+        la, lo = np.radians(lat), np.radians(lon)
+        return np.array([np.cos(la) * np.cos(lo), np.cos(la) * np.sin(lo), np.sin(la)])
+
+    a, b = unit(*AIRPORTS["EHAM"]), unit(*AIRPORTS["LIMC"])
+    omega = np.arccos(np.clip(a @ b, -1, 1))
+    t = np.linspace(0, 1, length)[:, None]
+    xyz = (np.sin((1 - t) * omega) * a + np.sin(t * omega) * b) / np.sin(omega)
+    route = np.stack([np.degrees(np.arcsin(xyz[:, 2])),
+                      np.degrees(np.arctan2(xyz[:, 1], xyz[:, 0]))], 1)
+    gens, sims = [], []
+    for _ in range(n_pairs):
+        smooth = sum(rng.normal(0, 0.03, 2) * np.sin(np.pi * k * t + rng.uniform(0, np.pi))
+                     for k in (1, 2, 3))
+        gen = route + smooth
+        flown = gen[::stride] + rng.normal(0, flown_noise, gen[::stride].shape)
+        gens.append(gen.astype(np.float32))
+        sims.append(flown.astype(np.float32))
+    return gens, sims
+
+
+def fly_bound(n, m, variants=None):
+    """Least time of one traj_dp launch (``variants`` given) or one Frechet
+    launch over pairs of true lengths ``n``, ``m``: the bytes they need read
+    once (their points, lengths, and hi) and written once at
+    HBM_BYTES_PER_S, or the fp32 operations of the true grids at
+    FP32_FLOPS, the larger. -> (ms, bound_by, ops)."""
+    from tvqvae_tpu_torch.ops.frechet_kernel import STEPS
+
+    points = 8 * (sum(n) + sum(m))
+    if variants is None:
+        ops = STEPS * FRECHET_CELL_OPS * sum((a - 1) * (b - 1) for a, b in zip(n, m))
+        nbytes = points + len(n) * (8 + 4 + 4)
+    else:
+        cells = sum(a * b for a, b in zip(n, m))
+        ops = cells * sum(DP_COST_OPS[metric] + DP_STEP_OPS[kind] for kind, metric, _ in variants)
+        nbytes = points + len(n) * (8 + 4 * len(variants))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops
+
+
+def fly_device_ms(torch, fn):
+    """{kernel: [device ms of each launch, in launch order]} of the
+    flyability kernels over one call of ``fn`` (torch.profiler), and the
+    call's device busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, busy = {k: [] for k in FLY_KERNELS}, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        dur = (e.time_range.end - e.time_range.start) / 1e3
+        busy += dur
+        for k in FLY_KERNELS:
+            if k in e.name:
+                launches[k].append((e.time_range.start, dur))
+    return {k: [d for _, d in sorted(v)] for k, v in launches.items()}, busy
+
+
+def frechet_plain_start(torch, D, p, q, hi, device="cuda"):
+    """Start ``distances.frechet_bisect`` on pairs whose padding repeats
+    their last point (as ``frechet_bisect`` pads): its 30 bisection steps of
+    the plain decision ``_frechet_decision``. Eagerly each step is ~1.6e5
+    launches from the host; on the card the decision is captured once in a
+    CUDA graph and the steps are replayed on a side stream, which leaves the
+    host free for other work meanwhile. The tensors made on the current
+    stream are marked as used by the side stream, and the graph (with its
+    memory pool) lives until the replays have run, so that nothing the
+    replays read or write is handed to other work before. Capturing a graph
+    waits for the whole card: start the shorter of two first. -> a function
+    that waits and returns (hi, ms: the capture's host time plus the
+    replays' device time)."""
+    t0 = time.perf_counter()
+    lo = torch.maximum(torch.sqrt(D._sq_dist(p[:, 0], q[:, 0])),
+                       torch.sqrt(D._sq_dist(p[:, -1], q[:, -1])))
+    eps = 0.5 * (lo + hi)
+    if device != "cuda":  # the CPU rehearsal: eagerly
+        hi = D.frechet_bisect(p, q, p.shape[1], q.shape[1], hi)
+        return lambda: (hi, 1e3 * (time.perf_counter() - t0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for t in (p, q, lo, hi, eps):
+        t.record_stream(side)
+    with torch.cuda.stream(side):
+        D._frechet_decision(p, q, eps)  # warm-up outside the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            ok = D._frechet_decision(p, q, eps)
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        first.record(side)
+        for _ in range(D.BISECTION_STEPS):
+            eps.copy_(0.5 * (lo + hi))
+            graph.replay()
+            lo, hi = torch.where(ok, lo, eps), torch.where(ok, eps, hi)
+        last.record(side)
+
+    def finish():
+        last.synchronize()
+        torch.cuda.current_stream().wait_stream(side)
+        graph.reset()  # the replays have run: its pool may go
+        return hi, capture_ms + first.elapsed_time(last)
+
+    return finish
+
+
+def flyability_phase(torch, device="cuda"):
+    """[flyability]: the counters set to 0, the 14 metrics of FLY_PAIRS +
+    FLY_LONG_PAIRS synthetic pairs through ``calculate_trajectory_distances_batch``
+    on the card (two buckets: one launch of each kernel a bucket); wall ms,
+    pairs/s, each kernel's device ms per launch; then each kernel held to its
+    plain version on the card (DP family: EDR, LCSS exactly, the discrete
+    Frechet 1e-6, DTW and ERP 1e-5 relative; the Frechet 1e-5 relative),
+    also at the launch plans of the full-length buckets (the Frechet's 8
+    elements a thread, the DP's diagonals longer than its threads), with
+    ms (events), the plain version's ms and the bound at those inputs, and
+    SSPD / Hausdorff of the batch against the plain version on the card (1e-5
+    relative) and on the CPU. -> the kernels' JSON entries."""
+    from tvqvae_tpu_torch.data.preprocess import AIRPORTS
+    from tvqvae_tpu_torch.evaluation.flyability import distances as D
+    from tvqvae_tpu_torch.ops import frechet_kernel, traj_dp_kernel
+
+    rng = np.random.default_rng(20)
+    gens, sims = fly_tracks(rng, FLY_PAIRS, L, FLY_STRIDE)
+    long_gens, _ = fly_tracks(rng, FLY_LONG_PAIRS, L, 1)
+    gens += long_gens
+    sims += [g + rng.normal(0, 0.005, g.shape).astype(np.float32) for g in long_gens]
+    adep = AIRPORTS["EHAM"]
+    buckets = list(dict.fromkeys((D._bucket_size(len(a)), D._bucket_size(len(b)))
+                                 for a, b in zip(gens, sims)))  # in the batch's launch order
+    D.calculate_trajectory_distances_batch(gens[:1], sims[:1], adep, device=device)  # warm-up
+
+    traj_dp_kernel.launch_count = frechet_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    out = D.calculate_trajectory_distances_batch(gens, sims, adep, device=device)
+    wall = time.perf_counter() - t0
+    launches = {"traj_dp": traj_dp_kernel.launch_count, "frechet": frechet_kernel.launch_count}
+    check(launches == {"traj_dp": len(buckets), "frechet": len(buckets)},
+          f"flyability launches {launches}, buckets {buckets}")
+    check(set(out) == set(D.KEYS) and all(len(v) == len(gens) for v in out.values()),
+          f"flyability keys {sorted(out)}")
+    bad = [k for k, v in out.items() if not np.isfinite(v).all()]
+    check(not bad, f"non-finite flyability metrics {bad}")
+    check(all(f <= df + 1e-5 for f, df in zip(out["Frechet"], out["Discrete Frechet"])),
+          "Frechet above the discrete Frechet")
+    by_kernel, busy = fly_device_ms(
+        torch, lambda: D.calculate_trajectory_distances_batch(gens, sims, adep, device=device))
+    print(f"[flyability] {len(gens)} pairs in buckets {buckets}: {1e3 * wall:.1f} ms wall, "
+          f"{len(gens) / wall:.1f} pairs/s; launches {launches}; device busy {busy:.2f} ms; "
+          + ", ".join(f"{k} ms a launch by bucket {[round(t, 3) for t in ts]}"
+                      for k, ts in by_kernel.items())
+          + "; medians " + ", ".join(f"{k} {np.median(out[k]):.6g}" for k in D.KEYS), flush=True)
+
+    # the DP kernel against its plain version, FLY_CHECK_PAIRS pairs of the
+    # first bucket, and the Frechet kernel against its plain version at
+    # FLY_FRECHET_SHAPE: the plain Frechet's graph replays run on the card
+    # while the host issues the plain DP family's row loops
+    k = FLY_CHECK_PAIRS
+    p = torch.from_numpy(np.stack([D._bucket_pad(x) for x in gens[:k]])).to(device)
+    q = torch.from_numpy(np.stack([D._bucket_pad(x) for x in sims[:k]])).to(device)
+    n = torch.tensor([len(x) for x in gens[:k]], device=device)
+    m = torch.tensor([len(x) for x in sims[:k]], device=device)
+    variants = D.dp_variants()
+    spec = [v[1:] for v in variants]
+    got = traj_dp_kernel.traj_dp(p, q, n, m, adep, spec)
+    fg, fs = fly_tracks(rng, k, FLY_FRECHET_SHAPE[0], 2)
+    fp = torch.from_numpy(np.stack(fg)).to(device)
+    fq = torch.from_numpy(np.stack([x[:FLY_FRECHET_SHAPE[1]] for x in fs])).to(device)
+    fn_, fm = [FLY_FRECHET_SHAPE[0]] * k, [FLY_FRECHET_SHAPE[1]] * k
+    hi = traj_dp_kernel.traj_dp(fp, fq, fn_, fm, adep, [("discret_frechet", "euclidean", 0.0)])
+    hi = hi[:, 0].contiguous()
+    fr = frechet_kernel.frechet(fp, fq, fn_, fm, hi)
+    # the Frechet's plan of 8 elements a thread: pairs of FLY_CHUNK8_ROWS x L
+    # points in their bucket, as the (5120, 5120) bucket launches it
+    cg, cs = fly_tracks(rng, k, L, 1)
+    pick = np.linspace(0, L - 1, FLY_CHUNK8_ROWS).round().astype(int)
+    cp = torch.from_numpy(np.stack([D._bucket_pad(x[pick]) for x in cg])).to(device)
+    cq = torch.from_numpy(np.stack([D._bucket_pad(x) for x in cs])).to(device)
+    cn, cm = [FLY_CHUNK8_ROWS] * k, [L] * k
+    c_plan = frechet_kernel.launch_plan(L)
+    check(device != "cuda" or c_plan[1] == frechet_kernel.CHUNKS[-1],
+          f"the Frechet's plan at {L} columns is {c_plan}, not {frechet_kernel.CHUNKS[-1]} a thread")
+    c_hi = traj_dp_kernel.traj_dp(cp, cq, cn, cm, adep, [("discret_frechet", "euclidean", 0.0)])
+    c_hi = c_hi[:, 0].contiguous()
+    c_fr = frechet_kernel.frechet(cp, cq, cn, cm, c_hi)
+    # the DP's diagonals longer than a block: pairs of FLY_WIDE x FLY_WIDE points
+    wg, ws = fly_tracks(rng, k, FLY_WIDE, 1)
+    wp = torch.from_numpy(np.stack([D._bucket_pad(x) for x in wg])).to(device)
+    wq = torch.from_numpy(np.stack([D._bucket_pad(x) for x in ws])).to(device)
+    wn = torch.tensor([FLY_WIDE] * k, device=device)
+    w_threads = traj_dp_kernel.launch_plan(FLY_WIDE, FLY_WIDE)[0]
+    check(device != "cuda" or w_threads < FLY_WIDE,
+          f"the DP's plan at {FLY_WIDE} x {FLY_WIDE} has {w_threads} threads: no strided diagonal")
+    w_got = traj_dp_kernel.traj_dp(wp, wq, wn, wn, adep, spec)
+    torch.cuda.synchronize()
+    finish_chunk8 = frechet_plain_start(torch, D, cp, cq, c_hi.clone(), device)
+    finish_frechet = frechet_plain_start(torch, D, fp, fq, hi.clone(), device)
+    t0 = time.perf_counter()
+    want = D.dp_metrics(p, q, n, m, adep, spec)
+    torch.cuda.current_stream().synchronize()
+    dp_plain_ms = 1e3 * (time.perf_counter() - t0)
+    w_want = D.dp_metrics(wp, wq, wn, wn, adep, spec)
+    fr_plain, fr_plain_ms = finish_frechet()
+    c_plain, _ = finish_chunk8()
+
+    def dp_rels(got, want, what):
+        """Max relative gap of each DP variant; LCSS and EDR exactly, the
+        discrete Frechet 1e-6, DTW and ERP 1e-5."""
+        rels = {}
+        for j, (key, kind, _, _) in enumerate(variants):
+            a, b = got[:, j].double(), want[:, j].double()
+            rels[key] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+            tol = 0.0 if kind in ("edr", "lcss") else 1e-6 if kind == "discret_frechet" else 1e-5
+            check(rels[key] <= tol,
+                  f"traj_dp {key} {what} differs from the plain version by {rels[key]}")
+        return rels
+
+    rels = dp_rels(got, want, "in the (5120, 1024) bucket")
+    w_rels = dp_rels(w_got, w_want, f"with strided diagonals at {FLY_WIDE} x {FLY_WIDE}")
+    for j, (key, *_) in enumerate(variants):
+        check(np.allclose(out[key][:k], got[:, j].cpu().numpy(), rtol=0, atol=0),
+              f"traj_dp {key}: the batch's value differs from the two-pair launch")
+    dp_err = max(float((got - want).abs().max()), float((w_got - w_want).abs().max()))
+    dp_ms = time_ms(torch, lambda: traj_dp_kernel.traj_dp(p, q, n, m, adep, spec), iters=5,
+                    warmup=1)
+    dp_bound, dp_by, dp_ops = fly_bound(n.tolist(), m.tolist(), spec)
+    diagonals = max(a + b - 1 for a, b in zip(n.tolist(), m.tolist()))
+
+    # SSPD / Hausdorff: the plain matrices, on the card and on the CPU
+    for metric in ("euclidean", "spherical"):
+        name = metric.capitalize()
+        for fn in (D.sspd, D.hausdorff):
+            key = f"{'SSPD' if fn is D.sspd else 'Hausdorff'} {name}"
+            card = fn(p, q, metric, n, m).cpu().numpy()
+            # the same code in a batch of another size: summation order only
+            check(np.allclose(card, out[key][:k], rtol=1e-5, atol=0),
+                  f"{key}: the batch {out[key][:k]} differs from the plain version {card}")
+            cpu = fn(p.cpu(), q.cpu(), metric, n.cpu(), m.cpu()).numpy()
+            # the cross-track formula amplifies the card's and the CPU's
+            # last-ulp sin/cos differences (tests/test_torch_flyability.py)
+            tol = 1e-5 if metric == "euclidean" else 1e-3
+            check(np.allclose(card, cpu, rtol=tol, atol=0), f"{key}: card {card} vs CPU {cpu}")
+
+    fr_rel = float(((fr - fr_plain).abs() / fr_plain.abs()).max())
+    check(fr_rel <= 1e-5, f"frechet kernel differs from the plain version by {fr_rel}")
+    c_rel = float(((c_fr - c_plain).abs() / c_plain.abs()).max())
+    check(c_rel <= 1e-5, f"frechet kernel at {c_plan[1]} elements a thread differs from the "
+                         f"plain version by {c_rel}")
+    fr_ms = time_ms(torch, lambda: frechet_kernel.frechet(fp, fq, fn_, fm, hi), iters=3, warmup=1)
+    fr_bound, fr_by, fr_ops = fly_bound(fn_, fm)
+    rows = frechet_kernel.STEPS * (FLY_FRECHET_SHAPE[0] - 1)
+    print(f"[flyability] traj_dp vs plain on {k} pairs at {tuple(p.shape[1:2]) + tuple(q.shape[1:2])} "
+          f"(true {n.tolist()} x {m.tolist()}): max rel by metric "
+          + ", ".join(f"{key} {r:.3g}" for key, r in rels.items())
+          + f"; {dp_ms:.3f} ms a launch ({1e6 * dp_ms / diagonals:.1f} ns per dependent diagonal "
+          f"of {diagonals}), plain {dp_plain_ms:.1f} ms, bound {dp_bound:.5f} ms ({dp_by}: "
+          f"{dp_ops / 1e9:.3f} GFLOP, no single PyTorch call computes it)", flush=True)
+    print(f"[flyability] traj_dp vs plain with strided diagonals on {k} pairs at "
+          f"{tuple(wp.shape[1:2]) + tuple(wq.shape[1:2])} (true {FLY_WIDE} x {FLY_WIDE}, "
+          f"{w_threads} threads): max rel by metric "
+          + ", ".join(f"{key} {r:.3g}" for key, r in w_rels.items()), flush=True)
+    print(f"[flyability] frechet vs plain on {k} pairs at {FLY_FRECHET_SHAPE}: max rel {fr_rel:.3g}, "
+          f"{fr_ms:.3f} ms a launch ({1e6 * fr_ms / rows:.1f} ns per dependent row of {rows}), "
+          f"plain {fr_plain_ms:.1f} ms (its decision replayed from a CUDA graph, beside the "
+          f"plain DP family), bound "
+          f"{fr_bound:.5f} ms ({fr_by}: {fr_ops / 1e9:.3f} GFLOP, no single PyTorch call computes "
+          f"it)", flush=True)
+    print(f"[flyability] frechet vs plain at {c_plan[1]} elements a thread on {k} pairs at "
+          f"{tuple(cp.shape[1:2]) + tuple(cq.shape[1:2])} (true {FLY_CHUNK8_ROWS} x {L}, "
+          f"{c_plan[0]} threads): max rel {c_rel:.3g}", flush=True)
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "traj_dp", "source": "tvqvae_tpu_torch/csrc/traj_dp.cu",
+         "replaces": "tvqvae_tpu/evaluation/flyability/distances.py:188",
+         "launches": launches["traj_dp"], "launches_by_path": {"flyability": launches["traj_dp"]},
+         "max_abs_err": dp_err, "ms": dp_ms, "plain_ms": dp_plain_ms, "bound_ms": dp_bound,
+         "bound_by": dp_by, "shape_pairs_PQ": [k, *p.shape[1:2], *q.shape[1:2]],
+         "device_ms_by_bucket": dict(zip(map(str, buckets), by_kernel["traj_dp_kernel"])),
+         **common},
+        {"name": "frechet_decision", "source": "tvqvae_tpu_torch/csrc/frechet_decision.cu",
+         "replaces": "tvqvae_tpu/evaluation/flyability/distances.py:406",
+         "launches": launches["frechet"], "launches_by_path": {"flyability": launches["frechet"]},
+         "max_abs_err": max(float((fr - fr_plain).abs().max()),
+                            float((c_fr - c_plain).abs().max())),
+         "ms": fr_ms, "plain_ms": fr_plain_ms,
+         "bound_ms": fr_bound, "bound_by": fr_by, "shape_pairs_PQ": [k, *FLY_FRECHET_SHAPE],
+         "device_ms_by_bucket": dict(zip(map(str, buckets), by_kernel["frechet_kernel"])),
+         **common},
+    ]
+
+
+def flyability_cli_start(work, plot, device="cuda"):
+    """The port's flyability CLI on the generate CLI's ``.npz``, with the JAX
+    tests' stub simulator. With ``plot`` (matplotlib importable) it runs as
+    ``python -m tvqvae_tpu_torch.scripts.evaluate_flyability`` in a
+    subprocess, beside what follows; without, ``run(args, plot=False)``
+    runs its steps up to the JSON in this process, now (its output kept for
+    an error message; its seconds printed). -> (the subprocess or None, its
+    start time, its output when run here)."""
+    stub = os.path.join(work.root, "bluesky_stub.py")
+    with open(stub, "w") as f:
+        f.write(BLUESKY_STUB)
+    logs = os.path.join(work.root, "stub_logs")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--synthetic_file", os.path.join(work.root, "synthetic", "synthetic.npz"),
+            "--save_dir", os.path.join(work.root, "flyability"), "--ADEP", "EHAM",
+            "--ADES", "LIMC", "--bluesky_cmd",
+            f"STUB_LOGS_DIR={shlex.quote(logs)} {shlex.quote(sys.executable)} "
+            f"{shlex.quote(stub)} --headless --scenfile {{scenfile}}",
+            "--logs_directory", logs, "--device", device]
+    t0 = time.perf_counter()
+    if not plot:
+        from tvqvae_tpu_torch.scripts import evaluate_flyability
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            evaluate_flyability.run(evaluate_flyability.build_argparser().parse_args(argv),
+                                    plot=False)
+        print(f"[flyability] evaluate_flyability's steps up to the JSON ran in this process in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return None, t0, out.getvalue()
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "OMP_NUM_THREADS": "2"}
+    cmd = [sys.executable, "-m", "tvqvae_tpu_torch.scripts.evaluate_flyability", *argv]
+    return subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), t0, None
+
+
+def check_flyability_cli(proc, t0, out, work):
+    """Wait for the flyability CLI (where it is a subprocess) and check its
+    outputs: the simulated CSV, ``synthetic_distances.json`` with the 14
+    keys, finite values, one per simulated flight of two or more points, and
+    the summary's statistics, and the CDF plot where it was asked for."""
+    if proc is not None:
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"evaluate_flyability exited {proc.returncode}:\n{out[-3000:]}")
+    save = os.path.join(work.root, "flyability")
+    with open(os.path.join(save, "synthetic_simulated.csv")) as f:
+        ids = [row["flight_id"] for row in csv.DictReader(f)]
+    scored = sum(1 for fid in set(ids) if ids.count(fid) >= 2)
+    with open(os.path.join(save, "synthetic_distances.json")) as f:
+        res = json.load(f)
+    from tvqvae_tpu_torch.evaluation.flyability.distances import KEYS
+
+    check(set(res["per_flight"]) == set(KEYS) == set(res["summary"]),
+          f"flyability JSON keys {sorted(res['per_flight'])}")
+    check(all(len(v) == scored for v in res["per_flight"].values()) and scored > 0,
+          f"{scored} simulated flights, per-flight lengths "
+          f"{ {k: len(v) for k, v in res['per_flight'].items()} }")
+    check(all(np.isfinite(v).all() for v in res["per_flight"].values()),
+          "non-finite flyability distances")
+    check(all(set(s) == {"mean", "median", "p90"} for s in res["summary"].values()),
+          "flyability summary statistics")
+    plot = os.path.exists(os.path.join(save, "synthetic_distance_cdfs.png"))
+    check(plot == (proc is not None), f"CDF plot written: {plot}, asked for: {proc is not None}")
+    how = ("a subprocess, its CDF plot written" if proc is not None else
+           "its steps up to the JSON in this process, run(args, plot=False): no matplotlib")
+    took = f"; {time.perf_counter() - t0:.1f} s from its start" if proc is not None else ""
+    print(f"[flyability] evaluate_flyability CLI ({how}; stub simulator): {len(set(ids))} "
+          f"flights simulated, {scored} scored, 14 metrics finite{took}", flush=True)
+
+
 def main():
     """Exit 1 without a card, or outside a checkout (the package does not
     import); else every phase, with the run's files in a temp directory."""
@@ -2354,7 +2815,7 @@ def smoke(torch, work, t_start):
     from tvqvae_tpu_torch.generation import TrainedModelSampler
     from tvqvae_tpu_torch.models.maskgit import encode_tokens
     from tvqvae_tpu_torch.models.vq import lookup_codes
-    from tvqvae_tpu_torch.ops import vq_kernel
+    from tvqvae_tpu_torch.ops import frechet_kernel, traj_dp_kernel, vq_kernel
 
     marks = [("start", t_start)]
 
@@ -2368,26 +2829,33 @@ def smoke(torch, work, t_start):
 
     import scipy
 
-    # for the record only: the port runs its own isolation forest either way
-    sklearn = importlib.util.find_spec("sklearn") is not None
+    # for the record only: the port runs its own isolation forest either way,
+    # and reads and writes flight tables without pandas; matplotlib draws the
+    # flyability CLI's CDF plot where it is importable
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("sklearn", "pandas", "matplotlib")}
     print(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind} | scipy "
-          f"{scipy.__version__} | sklearn {'importable' if sklearn else 'absent'}", flush=True)
+          f"{scipy.__version__} | " + " | ".join(
+              f"{name} {'importable' if ok else 'absent'}" for name, ok in found.items()),
+          flush=True)
 
-    def timed_build():
+    def timed_build(module):
         t0 = time.perf_counter()
-        vq_kernel.build(verbose=True)
+        module.build(verbose=True)
         return time.perf_counter() - t0
 
-    # nvcc runs while the published sampler is built: nothing launches the
-    # kernel before the build's result is read
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        building = pool.submit(timed_build)
+    # one nvcc per kernel source, all started together, while the published
+    # sampler is built: nothing launches a kernel before its build is read
+    builds = (vq_kernel, traj_dp_kernel, frechet_kernel)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        building = [pool.submit(timed_build, module) for module in builds]
         t0 = time.perf_counter()
         sampler = TrainedModelSampler.from_init(Config(), L, C, N_CLASSES, seed=0, device="cuda",
                                                 batch_size=B)
         print(f"[sampler] published width built in {time.perf_counter() - t0:.1f} s: "
               f"tokens {sampler.s1_spec.tokens_l}/{sampler.s1_spec.tokens_h}", flush=True)
-        print(f"[build] vq_nearest.cu in {building.result():.1f} s", flush=True)
+        print("[build] " + ", ".join(f"{module.SOURCE.name} in {job.result():.1f} s"
+                                     for module, job in zip(builds, building)), flush=True)
     lap("build")
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2451,6 +2919,8 @@ def smoke(torch, work, t_start):
     lap("ess")
     quality_launches = quality_phase(torch, vq_kernel, work)
     lap("quality")
+    fly_entries = flyability_phase(torch)
+    lap("flyability")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -2484,28 +2954,40 @@ def smoke(torch, work, t_start):
                 proc.wait()
         raise
     lap("CLI wait")
-    rel = 0.0
-    with torch.inference_mode():
-        for start in range(0, series.shape[0], B):
-            xb = torch.from_numpy(series[start:start + B]).cuda()
-            plain = []
-            for band, state in (("lf", sampler.frozen.vq_l), ("hf", sampler.frozen.vq_h)):
-                z = sampler.frozen.model.encode(xb, band)
-                idx_p = vq_kernel.nearest_codes_stats_plain(z.reshape(-1, z.shape[-1]).contiguous(),
-                                                            state.embed)[0].reshape(z.shape[:2])
-                check(torch.equal(encode_tokens(sampler.frozen, xb, band), idx_p),
-                      f"reconstruct {band} tokens differ from the plain VQ version")
-                plain.append(sampler.frozen.model.decode(lookup_codes(state, idx_p), band))
-            ref = torch.from_numpy(rec[start:start + B])
-            # relative to the output's scale: cuDNN may pick other conv algorithms
-            # as free memory changes between the two decodes
-            rel = max(rel, float((plain[0] + plain[1]).cpu().sub(ref).abs().max() / ref.abs().max()))
-            check(rel <= 1e-4, f"reconstruct differs from the plain VQ path by {rel} of its scale")
-    print(f"[reconstruct] tokens equal to the plain VQ version on the card; decoded series "
-          f"within {rel:.3g} of their scale", flush=True)
-    tok_l, tok_h, y = stage2_checks(torch, vq_kernel, frozen, stage2, data)
-    xprime = stage3_checks(torch, vq_kernel, frozen, stage3, stage2, data)
-    fe_sampler_check(torch, Config, TrainedModelSampler)
+    # the flyability CLI on the generated .npz, beside the checks below
+    flying = flyability_cli_start(work, plot=found["matplotlib"])
+    try:
+        rel = 0.0
+        with torch.inference_mode():
+            for start in range(0, series.shape[0], B):
+                xb = torch.from_numpy(series[start:start + B]).cuda()
+                plain = []
+                for band, state in (("lf", sampler.frozen.vq_l), ("hf", sampler.frozen.vq_h)):
+                    z = sampler.frozen.model.encode(xb, band)
+                    flat = z.reshape(-1, z.shape[-1]).contiguous()
+                    idx_p = vq_kernel.nearest_codes_stats_plain(flat, state.embed)[0]
+                    idx_p = idx_p.reshape(z.shape[:2])
+                    check(torch.equal(encode_tokens(sampler.frozen, xb, band), idx_p),
+                          f"reconstruct {band} tokens differ from the plain VQ version")
+                    plain.append(sampler.frozen.model.decode(lookup_codes(state, idx_p), band))
+                ref = torch.from_numpy(rec[start:start + B])
+                # relative to the output's scale: cuDNN may pick other conv algorithms
+                # as free memory changes between the two decodes
+                gap = (plain[0] + plain[1]).cpu().sub(ref).abs().max() / ref.abs().max()
+                rel = max(rel, float(gap))
+                check(rel <= 1e-4,
+                      f"reconstruct differs from the plain VQ path by {rel} of its scale")
+        print(f"[reconstruct] tokens equal to the plain VQ version on the card; decoded series "
+              f"within {rel:.3g} of their scale", flush=True)
+        tok_l, tok_h, y = stage2_checks(torch, vq_kernel, frozen, stage2, data)
+        xprime = stage3_checks(torch, vq_kernel, frozen, stage3, stage2, data)
+        fe_sampler_check(torch, Config, TrainedModelSampler)
+        check_flyability_cli(*flying, work)
+    except BaseException:
+        if flying[0].poll() is None:
+            flying[0].kill()
+            flying[0].wait()
+        raise
     lap("timed checks")
     profile_phase(torch, sampler, series, wall_ms)
     train_profile(torch, trained, data, step_ms)
@@ -2541,7 +3023,7 @@ def smoke(torch, work, t_start):
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(marks, marks[1:])),
           flush=True)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, *fly_entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -602,6 +602,6 @@ extern "C" int vq_nearest_stats(const float* flat, const float* embed, int M, in
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* vq_error_string(int code) {
+extern "C" const char* vq_nearest_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

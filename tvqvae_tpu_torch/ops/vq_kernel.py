@@ -34,22 +34,13 @@ reason ``tvqvae_tpu/models/vq.py`` wraps the TPU kernel's inputs in
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "vq_nearest.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from tvqvae_tpu_torch.ops import nvcc
+
+SOURCE = nvcc.CSRC / "vq_nearest.cu"
 MAX_DIM = 512  # a 64-row tile of x at D=512 still fits in shared memory
 # Rows of x per block (kTileRows in vq_nearest.cu) and the chunk widths its
 # assign kernel is built for (codes per chunk). They must match the source.
@@ -61,8 +52,17 @@ SCRATCH_ALIGN = 256
 # Launches of the CUDA kernel (one per wrapper call that reaches the card).
 launch_count = 0
 
-_lib = None
-_lib_lock = threading.Lock()
+_lib = nvcc.Library(SOURCE, {
+    "vq_nearest_stats": ([
+        ctypes.c_void_p, ctypes.c_void_p,                   # flat, embed
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # M, K, D
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # chunk_codes, splits, chunks_per_split
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, counts, embed_sum
+        ctypes.c_void_p, ctypes.c_void_p,                   # win_val, win_idx
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # slot_tab, pcnt, part
+        ctypes.c_void_p,                                    # stream
+    ], ctypes.c_int),
+})
 
 
 def nearest_codes_stats_plain(flat: torch.Tensor, embed: torch.Tensor):
@@ -119,54 +119,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False):
     """Compile the kernel's shared library (once per source and flag set)
     and return its path. With ``verbose`` print nvcc's ptxas report."""
-    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libvq_nearest_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip(), flush=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.vq_nearest_stats.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p,                   # flat, embed
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # M, K, D
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,           # chunk_codes, splits, chunks_per_split
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # idx, counts, embed_sum
-                ctypes.c_void_p, ctypes.c_void_p,                   # win_val, win_idx
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # slot_tab, pcnt, part
-                ctypes.c_void_p,                                    # stream
-            ]
-            lib.vq_nearest_stats.restype = ctypes.c_int
-            lib.vq_error_string.argtypes = [ctypes.c_int]
-            lib.vq_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    return _lib.build(verbose)
 
 
 def _check(flat: torch.Tensor, embed: torch.Tensor) -> None:
@@ -198,7 +154,7 @@ def nearest_codes_stats(flat: torch.Tensor, embed: torch.Tensor):
     K = embed.shape[0]
     if D > MAX_DIM:
         raise ValueError(f"the CUDA kernel takes D <= {MAX_DIM}, got {D}")
-    lib = _load()
+    lib = _lib.get()
     index = flat.device.index if flat.device.index is not None else torch.cuda.current_device()
     pl = plan(M, K, D, _sm_count(index))
     idx = torch.empty(M, dtype=torch.int32, device=flat.device)
@@ -215,9 +171,6 @@ def nearest_codes_stats(flat: torch.Tensor, embed: torch.Tensor):
             at.get("win_val"), at.get("win_idx"), at.get("slot_tab"), at["pcnt"], at["part"],
             torch.cuda.current_stream(flat.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"vq_nearest_stats launch failed: {lib.vq_error_string(err).decode()}"
-        )
+    _lib.check("vq_nearest_stats", err)
     launch_count += 1
     return idx, counts, embed_sum
