@@ -116,6 +116,20 @@ It needs no JAX and no network. Phases, each fatal on failure:
      against its plain version (its decision replayed from a CUDA graph) on
      2 pairs of (1024, 512) points (1e-5 relative), each with ms, the plain
      version's ms and the bound.
+ 14c. preprocess: (a) the counters set to 0, the OpenSky preprocess CLI in
+     the process on a synthetic export written by the phase (5 corridors of
+     20 flights of 4633 points, ~0.46M rows, aircraft interleaved in time,
+     each aircraft flying twice 8 h apart), its clustering on the card:
+     rows/s of the parse, seconds by stage, EM iterations and lower bound;
+     the flight ids are the written flights, the labels the corridors, each
+     timedelta ends at its flight's duration in seconds, and the .npz goes
+     through ``get_data`` into one published-width ``train_stage1`` step (2
+     VQ launches a step and a validation batch); (b) the Gaussian mixture at
+     the published dataset's clustering geometry (N=6592, D=2000, K=5) on
+     the card on seeded corridor features: seconds, EM iterations, ms an E+M
+     pair, its float64 operations and their share of 67 TFLOP/s, peak
+     memory; (c) the mixture on the card and on the CPU at N=512, D=400,
+     K=5: labels and iterations equal, means within 1e-9 relative.
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -251,6 +265,16 @@ DP_COST_OPS = {"euclidean": 7, "spherical": 16}
 DP_STEP_OPS = {"dtw": 3, "erp": 5, "edr": 6, "lcss": 4, "discret_frechet": 3}
 FRECHET_CELL_OPS = 2 * 26 + 8
 FLY_KERNELS = ("traj_dp_kernel", "frechet_kernel")  # csrc/traj_dp.cu, csrc/frechet_decision.cu
+# [preprocess]: (a) the OpenSky CLI on PREP_CORRIDORS corridors of
+# PREP_PER_CORRIDOR flights of ~PREP_POINTS points each (the published
+# EHAM->LIMC length), two flights an aircraft PREP_GAP_H hours apart; (b) the
+# mixture at the published dataset's clustering geometry: 6592 flights
+# (5932 train + 660 test, BASELINE.md), 2 x 1000 resampled coordinates, 5
+# components; (c) the same module on the card and on the CPU at PREP_CHECK.
+PREP_CORRIDORS, PREP_PER_CORRIDOR, PREP_POINTS, PREP_GAP_H = 5, 20, 4633, 8.0
+PREP_GMM, PREP_CHECK = (6592, 2000, 5), (512, 400, 5)
+FP64_TC_FLOPS = 67e12  # H100 SXM float64 on the tensor cores
+
 # The JAX package's test stub for the BlueSky simulator
 # (tests/test_flyability.py:35-68): replays each flight's waypoints with a
 # fixed offset and writes an EVALLOG log into $STUB_LOGS_DIR.
@@ -2788,6 +2812,190 @@ def check_flyability_cli(proc, t0, out, work):
           f"flights simulated, {scored} scored, 14 metrics finite{took}", flush=True)
 
 
+def corridor_features(n, points, k, spread, seed, pinned_ends=False):
+    """(n, 2 * points) interleaved (y, x) tracks in km of n flights on k
+    corridors: each corridor a bent path, each flight its corridor plus a
+    smooth sideways offset and point noise of ``spread``; with
+    ``pinned_ends`` every flight starts and ends at the same two points, as
+    flights between two airports do. -> (features, corridor of each)."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 1, points)
+    corridor = rng.integers(0, k, n)
+    bend = np.linspace(-1.0, 1.0, k)[corridor, None] * np.sin(np.pi * t)
+    smooth = rng.normal(0, 0.3 * spread, (n, 1)) * np.sin(np.pi * t) ** 2
+    y = -700.0 * t + 100.0 * bend + rng.normal(0, spread, (n, points)) * 5
+    x = 250.0 * t + 150.0 * bend + 150.0 * smooth + rng.normal(0, spread, (n, points)) * 5
+    if pinned_ends:
+        y[:, [0, -1]] = y[0, [0, -1]]
+        x[:, [0, -1]] = x[0, [0, -1]]
+    F = np.empty((n, 2 * points))
+    F[:, 0::2], F[:, 1::2] = y, x
+    return F, corridor
+
+
+def gmm_iteration_flops(n, d, k):
+    """float64 operations of one E+M pair of the full-covariance mixture:
+    per component the weighted covariance and the log-probability products
+    (2nd^2 each), the Cholesky (d^3/3) and the triangular inverse (d^3), and
+    the means and elementwise terms (~6nd)."""
+    return k * (4 * n * d * d + 4 * d ** 3 / 3 + 6 * n * d)
+
+
+def write_opensky_csv(path, seed=11):
+    """An OpenSky-like export EHAM -> LIMC: PREP_CORRIDORS corridors (bends of
+    up to 1.2 deg), PREP_PER_CORRIDOR flights each of PREP_POINTS or one more
+    points at ~1.2 s with millisecond stamps (every flight within one
+    standard deviation of the mean length), a flight starting every 12
+    minutes (rows interleaved in time). Flights i and i + n/2 share an
+    aircraft, callsign and corridor, PREP_GAP_H hours apart (a real gap of
+    > 6 h between them).
+    -> (rows, {the flight id the port must give: (corridor, duration s)})."""
+    from tvqvae_tpu_torch.data.preprocess import AIRPORTS
+
+    rng = np.random.default_rng(seed)
+    (lat0, lon0), (lat1, lon1) = AIRPORTS["EHAM"], AIRPORTS["LIMC"]
+    n = PREP_CORRIDORS * PREP_PER_CORRIDOR
+    epoch = np.datetime64("2021-06-01T00:00:00", "ms")
+    cols, truth = [], {}
+    for i in range(n):
+        m = PREP_POINTS + i % 2
+        t = np.linspace(0, 1, m)
+        plane = i % (n // 2)
+        c = plane % PREP_CORRIDORS
+        start = (i // (n // 2)) * PREP_GAP_H * 3600e3 + plane * 720e3
+        ms = (start + np.round(t * rng.uniform(5200, 5600) * 1e3)).astype(np.int64)
+        bend = (c - (PREP_CORRIDORS - 1) / 2) * 0.6 * np.sin(np.pi * t)
+        lat = lat0 + (lat1 - lat0) * t + 0.5 * bend + rng.normal(0, 0.002, m)
+        lon = lon0 + (lon1 - lon0) * t + bend + rng.normal(0, 0.002, m)
+        lat[[0, -1]], lon[[0, -1]] = (lat0, lat1), (lon0, lon1)
+        alt = 300 + 35000 * np.sin(np.pi * t) + rng.normal(0, 30, m)
+        cols.append((ms, lat, lon, alt, np.full(m, plane)))
+        first = str(np.datetime_as_string(epoch + ms[0], unit="s"))
+        stamp = first.replace("-", "").replace(":", "").replace("T", "_")
+        truth[f"4ca{plane:03x}_KLM{plane:04d}_{stamp}"] = (c, (ms[-1] - ms[0]) / 1e3)
+    ms, lat, lon, alt, plane = (np.concatenate(x) for x in zip(*cols))
+    order = np.argsort(ms, kind="stable")
+    stamps = np.datetime_as_string(epoch + ms[order], unit="ms")
+    with open(path, "w") as f:
+        f.write("timestamp,icao24,latitude,longitude,altitude,callsign,estdepartureairport,"
+                "estarrivalairport\n")
+        f.writelines(f"{s}+00:00,4ca{p:03x},{a:.6f},{o:.6f},{h:.1f},KLM{p:04d},EHAM,LIMC\n"
+                     for s, p, a, o, h in zip(stamps.tolist(), plane[order].tolist(),
+                                              lat[order].tolist(), lon[order].tolist(),
+                                              alt[order].tolist()))
+    return len(ms), truth
+
+
+def mixture_fit(torch, F, k, device):
+    """StandardScaler + GaussianMixture(k, random_state=199) on ``device``
+    -> (labels, the fitted mixture)."""
+    from tvqvae_tpu_torch.data.mixture import GaussianMixture, StandardScaler
+
+    gmm = GaussianMixture(k, random_state=199, device=device)
+    return gmm.fit_predict(StandardScaler(device=device).fit_transform(F)), gmm
+
+
+def same_partition(a, b) -> bool:
+    return len(set(zip(a.tolist(), b.tolist()))) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+def preprocess_phase(torch, vq_kernel, work, device="cuda"):
+    """[preprocess]: (a) the counters set to 0, the OpenSky CLI in the process
+    on a synthetic export (``write_opensky_csv``), clustering on the card:
+    rows/s of the parse, seconds by stage, EM iterations and lower bound;
+    the labels are the corridors, each timedelta ends at its flight's
+    duration in seconds, and the .npz goes through ``get_data`` into one
+    ``train_stage1`` step at the published width (its VQ launches are the
+    phase's count); (b) the mixture at PREP_GMM on the card: seconds, EM
+    iterations, ms an E+M pair, its float64 operations and their share of
+    the card's float64 tensor peak, peak memory; (c) the mixture at
+    PREP_CHECK on the card and on the CPU: labels and iterations equal,
+    means within 1e-9 relative. -> the phase's VQ launches."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import get_data
+    from tvqvae_tpu_torch.scripts import preprocess as cli
+    from tvqvae_tpu_torch.train.runner import train_stage1
+
+    raw = os.path.join(work.root, "raw", "OpenSky")
+    os.makedirs(raw, exist_ok=True)
+    t0 = time.perf_counter()
+    rows, truth = write_opensky_csv(os.path.join(raw, "opensky_EHAM_LIMC_2021.csv"))
+    t_write = time.perf_counter() - t0
+    vq_kernel.launch_count = 0
+    got = cli.main(["--ADEP", "EHAM", "--ADES", "LIMC", "--raw_data_dir",
+                    os.path.join(work.root, "raw"), "--data_source", "OpenSky", "--save_dir",
+                    os.path.join(work.root, "real"), "--device", device])
+    check(got["rows"] == rows, f"the CLI read {got['rows']} rows of {rows}")
+    stages = ("parse", "ids", "outliers", "resample", "features", "kmeans", "em", "export")
+    print(f"[preprocess] OpenSky CLI, {rows} rows ({t_write:.2f} s to write): parse "
+          f"{rows / got['parse']:.0f} rows/s; seconds " + ", ".join(
+              f"{s} {got[s]:.3f}" for s in stages)
+          + f"; EM iterations {got['em_iterations']}, lower bound {got['lower_bound']:.4f}; "
+          f"X {tuple(got['shape'])}", flush=True)
+    check(sorted(got["flights"]) == sorted(truth), "flight ids differ from the written flights "
+          f"(one per aircraft and gap): {sorted(set(got['flights']) ^ set(truth))[:4]}")
+    corridor = np.array([truth[i][0] for i in got["flights"]])
+    check(same_partition(got["labels"], corridor),
+          f"labels {got['labels'].tolist()} are not the corridors {corridor.tolist()}")
+    z = np.load(got["path"])
+    td_end = z["X"][:, 3, -1].astype(np.float64)
+    dur = np.array([truth[i][1] for i in got["flights"]])
+    td_err = float(np.abs(td_end - dur).max() / dur.max())
+    check(td_err <= 2.0 ** -23, f"timedelta ends off the flight durations by {td_err}")
+
+    cfg = Config()
+    data = get_data(got["path"], cfg.dataset.features)
+    rec = StepRecorder(torch)
+    train_stage1(cfg, data, max_steps=1, device=device, logger=rec, log_interval=1)
+    launches = vq_kernel.launch_count
+    n_test = len(data.X_test)
+    val_batches = -(-n_test // min(cfg.dataset.batch_sizes["stage1"], n_test))
+    expected = 2 + 2 * val_batches * len(rec.val)
+    check(launches == expected, f"[preprocess] VQ launches {launches}, expected {expected}")
+    loss = float(rec.losses[0])
+    check(np.isfinite(loss), f"stage-1 step on the preprocessed set: loss {loss}")
+    print(f"[preprocess] the .npz through get_data ({len(data.X_train)} train / {n_test} test, "
+          f"L={data.input_length}) into one published-width stage-1 step: loss {loss:.4f}, "
+          f"VQ launches {launches}; timedelta ends at the flight durations within "
+          f"{td_err:.2e} of the longest", flush=True)
+
+    # (b) the published dataset's clustering geometry
+    n, d, k = PREP_GMM
+    F, corridor = corridor_features(n, d // 2, k, 0.5, seed=12, pinned_ends=True)
+    X = torch.from_numpy(F).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    labels, gmm = mixture_fit(torch, X, k, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(same_partition(labels, corridor), "the published-geometry mixture missed the corridors")
+    ms_pair = 1e3 * gmm.seconds_["em"] / (gmm.n_iter_ + 1)  # + the init M and the final E
+    flops = gmm_iteration_flops(n, d, k)
+    print(f"[preprocess] mixture N={n} D={d} K={k} on the card: {wall:.3f} s (k-means "
+          f"{gmm.seconds_['kmeans']:.3f} s, EM {gmm.seconds_['em']:.3f} s), {gmm.n_iter_} EM "
+          f"iterations, {ms_pair:.2f} ms an E+M pair, {flops:.3e} float64 operations a pair = "
+          f"{flops / (ms_pair / 1e3) / 1e12:.1f} TFLOP/s, {flops / (ms_pair / 1e3) / FP64_TC_FLOPS:.1%} "
+          f"of 67 TFLOP/s; lower bound {gmm.lower_bound_:.4f}; peak memory {peak_gib:.2f} GiB "
+          "above the features", flush=True)
+
+    # (c) the card against the CPU
+    n, d, k = PREP_CHECK
+    F, corridor = corridor_features(n, d // 2, k, 1.5, seed=13, pinned_ends=True)
+    fits = {dev: mixture_fit(torch, F, k, dev) for dev in (device, "cpu")}
+    (lc, gc), (lh, gh) = fits[device], fits["cpu"]
+    mean_rel = float((gc.means_.cpu() - gh.means_).abs().max() / gh.means_.abs().max())
+    check(np.array_equal(lc, lh) and gc.n_iter_ == gh.n_iter_,
+          f"card labels/iterations differ from the CPU's ({gc.n_iter_} vs {gh.n_iter_})")
+    check(mean_rel <= 1e-9, f"card means off the CPU's by {mean_rel} relative")
+    print(f"[preprocess] mixture N={n} D={d} K={k}: card and CPU labels equal, "
+          f"{gc.n_iter_} EM iterations each, means within {mean_rel:.2e} relative, lower bounds "
+          f"{gc.lower_bound_:.6f} / {gh.lower_bound_:.6f}", flush=True)
+    return launches
+
+
 def main():
     """Exit 1 without a card, or outside a checkout (the package does not
     import); else every phase, with the run's files in a temp directory."""
@@ -2921,6 +3129,8 @@ def smoke(torch, work, t_start):
     lap("quality")
     fly_entries = flyability_phase(torch)
     lap("flyability")
+    preprocess_launches = preprocess_phase(torch, vq_kernel, work)
+    lap("preprocess")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -3005,12 +3215,12 @@ def smoke(torch, work, t_start):
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
                      + eval_launches + bf16_launches + ess_launches + quality_launches
-                     + ckpt_launches),
+                     + preprocess_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
                              "ess": ess_launches, "quality": quality_launches,
-                             "ckpt": ckpt_launches},
+                             "preprocess": preprocess_launches, "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

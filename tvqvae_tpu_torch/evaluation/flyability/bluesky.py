@@ -22,17 +22,16 @@ import glob
 import os
 import subprocess
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional
 
 import numpy as np
 
 from tvqvae_tpu_torch.data.preprocess import haversine_np
+from tvqvae_tpu_torch.data.table import Table, concat, sort_rows, table_len, take
 
 KM_TO_NM = 0.539957
 ROW = "_row"
 LOG_COLUMNS = ("relt", "latitude", "longitude", "altitude", "flight_id")
-
-Table = Dict[str, np.ndarray]
 
 
 @dataclass
@@ -49,27 +48,6 @@ class BlueSkyConfig:
 
 # --------------------------------------------------------------------------
 # tables
-
-
-def table_len(t: Table) -> int:
-    return len(next(iter(t.values()))) if t else 0
-
-
-def take(t: Table, idx) -> Table:
-    """Rows ``idx`` (indices or a boolean mask) of every column."""
-    return {k: v[idx] for k, v in t.items()}
-
-
-def concat(tables: Sequence[Table]) -> Table:
-    tables = [t for t in tables if t]
-    if not tables:
-        return {}
-    return {k: np.concatenate([t[k] for t in tables]) for k in tables[0]}
-
-
-def sort_rows(t: Table, keys: Sequence[str]) -> Table:
-    """Rows sorted by ``keys`` (the first the primary key), ties kept in order."""
-    return take(t, np.lexsort([t[k] for k in reversed(keys)]))
 
 
 def flights(t: Table):
