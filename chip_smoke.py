@@ -130,6 +130,19 @@ It needs no JAX and no network. Phases, each fatal on failure:
      pair, its float64 operations and their share of 67 TFLOP/s, peak
      memory; (c) the mixture on the card and on the CPU at N=512, D=400,
      K=5: labels and iterations equal, means within 1e-9 relative.
+ 14d. import: seeded published-width modules (stage 1 with
+     random BatchNorm statistics, both priors with the x-transformers
+     wrapper's projections, the enhancer, the FCN) written with
+     ``torch.save`` as the reference's Lightning checkpoints (the inverse of
+     ``utils/import_reference.py``, newer x-transformers naming, a stage-3
+     tau of 0.5); ``python -m tvqvae_tpu_torch.scripts.import_ckpt`` on them
+     in a subprocess (bytes, seconds by stage); then, the counters set to 0,
+     ``from_checkpoints`` of its output without and with the enhancer
+     against the in-memory sampler of the same modules: a 32-batch with
+     injected noise (tokens equal, series bit-equal, ms), ``reconstruct`` of
+     32 series (bit-equal, 2 VQ launches; ``launches_by_path.import``); one
+     sample batch under ``profiling.trace`` with an ``annotate("sample")``
+     span, the Chrome trace read back (the span, the device kernels).
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -164,7 +177,16 @@ It needs no JAX and no network. Phases, each fatal on failure:
      CDF plot where the card has matplotlib) on the generate CLI's 64
      series with the JAX tests' stub simulator: the simulated CSV, the
      distances JSON with the 14 metrics, finite, one value per simulated
-     flight.
+     flight. The evaluate CLI of phase 15 writes the JAX CLI's images where
+     the card has matplotlib; without it a subprocess calls its
+     ``run(args, figures=False)``: every image's data computed and finite.
+ 16b. analysis: the analysis CLI's ``run(args, figures=<matplotlib
+     importable>)`` in the process on 5200 synthetic series of L=256 (520
+     test) and 512 more as the generated set, with the flyability CLI's
+     JSON: its seconds by step, ROCKET features (250 kernels), FID and the
+     statistics on the card, PCA and t-SNE of 2 x 512 feature rows on the
+     card (ms, the t-SNE's KL and trustworthiness); the same PCA and t-SNE
+     on the CPU: coordinates within 1e-4 of their scale, KL within 5%.
  17. profile: device time by kernel and the device's idle share over one
      sample batch, one reconstruct batch, one training step of each stage,
      one FCN step and one 32-series ROCKET featurisation (torch.profiler).
@@ -212,7 +234,10 @@ STAGE2_STEPS, STAGE2_WARMUP, SWEEP_BATCH = 120, 20, 64
 STAGE3_STEPS, STAGE3_WARMUP, XPRIME_BATCH = 60, 20, 32
 FCN_STEPS, FCN_WARMUP = 45, 10
 ROCKET_KERNELS, EVAL_SERIES, EVAL_TAUS = 1000, 64, (0.5, 1.0)
-# the JAX evaluate CLI's result names (tvqvae_tpu/scripts/evaluate.py), images aside
+# the JAX evaluate CLI's image names (tvqvae_tpu/scripts/evaluate.py), one
+# conditional grid a class besides, and its result names
+JAX_EVAL_IMAGES = ("visual_inspection.png", "pca_test_gen.png", "tsne_test_gen.png",
+                   "visual_inspection_fe.png", "pca_test_gen_fe.png")
 JAX_EVAL_KEYS = ("FID", "FID_rec", "MDD", "ACD", "SD", "KD", "IS_mean", "IS_std", "FID with FE",
                  "MDD with FE", "ACD with FE", "SD with FE", "KD with FE", "IS_mean with FE",
                  "IS_std with FE", "FID_svq")
@@ -273,6 +298,12 @@ FLY_KERNELS = ("traj_dp_kernel", "frechet_kernel")  # csrc/traj_dp.cu, csrc/frec
 # components; (c) the same module on the card and on the CPU at PREP_CHECK.
 PREP_CORRIDORS, PREP_PER_CORRIDOR, PREP_POINTS, PREP_GAP_H = 5, 20, 4633, 8.0
 PREP_GMM, PREP_CHECK = (6592, 2000, 5), (512, 400, 5)
+# [import]: the stage-3 file's nonzero tau buffer; [analysis]: a dataset of
+# ANALYSIS_SERIES series at ANALYSIS_L (its 10% test split above 512 rows) and
+# ANALYSIS_GEN generated ones, so the joint t-SNE embeds 2 x 512 points, with
+# ANALYSIS_KERNELS ROCKET kernels (the FID's Schur trace at 500 features)
+IMPORT_TAU = 0.5
+ANALYSIS_SERIES, ANALYSIS_L, ANALYSIS_GEN, ANALYSIS_KERNELS = 5200, 256, 512, 250
 FP64_TC_FLOPS = 67e12  # H100 SXM float64 on the tensor cores
 
 # The JAX package's test stub for the BlueSky simulator
@@ -319,6 +350,179 @@ SMALL_CFG = {
                 "prior_model_h": {"hidden_dim": 8, "n_layers": 1, "heads": 1}},
     "fidelity_enhancer": {"dim": 8, "dim_mults": [1, 2], "resnet_block_groups": 4},
 }
+
+
+# ---------------------------------------------------------------------------
+# reference-layout (SynthAIr/T-VQ-VAE-TrajGen) checkpoints from port modules:
+# the inverse of tvqvae_tpu_torch/utils/import_reference.py, key for key, so
+# that [import] feeds the import CLI the files a reference user has
+
+
+def _renamed(module, rename, prefix, reshape=None):
+    """``module``'s state dict with each key's leading parts renamed by the
+    longest matching prefix of ``rename`` {port prefix: reference prefix},
+    under ``prefix``; ``reshape`` {leaf: shape} gives the reference's shape
+    of a leaf (Snake's ``a``, ChanLayerNorm's ``g``)."""
+    out = {}
+    for key, v in module.state_dict().items():
+        top = max((p for p in rename if key == p or key.startswith(p + ".")), key=len)
+        ref = rename[top] + key[len(top):]
+        leaf = key.rsplit(".", 1)[-1]
+        v = v.detach().cpu().clone()
+        if reshape and leaf in reshape:
+            v = v.reshape(reshape[leaf])
+        out[prefix + ref] = v
+    return out
+
+
+_STAGE1_BLOCKS = {
+    "EncBlock2d": {"Conv_0": "block.0", "BatchNorm_0": "block.1", "Snake_0": "block.2"},
+    "DecBlock2d": {"ConvTranspose2dTorch_0": "block.0", "BatchNorm_0": "block.1",
+                   "Snake_0": "block.2"},
+    "ResBlock2d": {"Snake_0": "convs.0", "Conv_0": "convs.1", "BatchNorm_0": "convs.2",
+                   "Snake_1": "convs.3", "Conv_1": "convs.4", "Conv_2": "proj"},
+}
+
+
+def reference_stage1_sd(model, vq_l, vq_h) -> dict:
+    """A port ``Stage1Model`` and its codebooks -> the reference stage-1
+    LightningModule's state dict: ``{encoder,decoder}_{l,h}.{encoder,decoder}.{i}``
+    by Sequential index, ``decoder_{l,h}.linear`` (the TimeHead) and
+    ``vq_model_{l,h}._codebook.*``."""
+    sd = {}
+    for band, vq in (("l", vq_l), ("h", vq_h)):
+        for part in ("encoder", "decoder"):
+            stack = getattr(model, f"{part}_{band}")
+            for i, (name, block) in enumerate(stack.named_children()):
+                kind = name.rsplit("_", 1)[0]
+                rename = {k: f"{i}.{v}" for k, v in _STAGE1_BLOCKS.get(kind, {}).items()}
+                if kind == "ConvTranspose2dTorch":  # the decoder's bare tail convs
+                    sd.update({f"{part}_{band}.{part}.{i}.{k}": v.detach().cpu().clone()
+                               for k, v in block.state_dict().items()})
+                    continue
+                sd.update(_renamed(block, rename, f"{part}_{band}.{part}.",
+                                   {"a": (1, -1, 1, 1)}))
+        sd.update(_renamed(getattr(model, f"head_{band}"), {"Dense_0": f"decoder_{band}.linear"},
+                           ""))
+        for f in ("embed", "embed_avg", "cluster_size"):
+            sd[f"vq_model_{band}._codebook.{f}"] = getattr(vq, f).detach().cpu().clone()
+        sd[f"vq_model_{band}._codebook.initted"] = vq.initted.detach().cpu().reshape(1).float()
+    return sd
+
+
+def reference_prior_sd(prior) -> dict:
+    """A port ``BidirectionalTransformer`` (RMSNorm, as the published
+    priors) -> the reference prior's state dict in the newer x-transformers
+    naming (a ContinuousTransformerWrapper with project_in/out,
+    ``layers.{i}.0.0.g`` norm slots, ``ff.0.0``/``ff.2``, a bare ``to_out``)."""
+    rename = {"logit_bias": "bias", "class_emb": "class_condition_emb",
+              "projector.Conv_0": "projector.conv.0", "projector.BatchNorm_0": "projector.conv.2",
+              "projector.Conv_1": "projector.conv.3", "project_in": "blocks.project_in",
+              "project_out": "blocks.project_out", "post_emb_norm": "blocks.post_emb_norm",
+              "pred_head": "pred_head.0", "pred_norm": "pred_head.2",
+              "tok_emb_l": "tok_emb_l", "tok_emb_h": "tok_emb_h", "pos_emb": "pos_emb"}
+    al = "blocks.attn_layers"
+    for j in range(sum(1 for c, _ in prior.named_children() if c.startswith("block_"))):
+        a, f = f"{al}.layers.{2 * j}", f"{al}.layers.{2 * j + 1}"
+        rename.update({f"block_{j}.RMSNorm_0.weight": f"{a}.0.0.g",
+                       f"block_{j}.Dense_0": f"{a}.1.to_q", f"block_{j}.Dense_1": f"{a}.1.to_k",
+                       f"block_{j}.Dense_2": f"{a}.1.to_v", f"block_{j}.Dense_3": f"{a}.1.to_out",
+                       f"block_{j}.RMSNorm_1.weight": f"{f}.0.0.g",
+                       f"block_{j}.Dense_4": f"{f}.1.ff.0.0", f"block_{j}.Dense_5": f"{f}.1.ff.2"})
+    rename["RMSNorm_0.weight"] = f"{al}.final_norm.g"
+    return _renamed(prior, rename, "")
+
+
+def reference_stage2_sd(t_l, t_h) -> dict:
+    """Both priors -> a stage-2 LightningModule's state dict
+    (``maskgit.transformer_{l,h}.*``)."""
+    sd = {}
+    for name, prior in (("transformer_l", t_l), ("transformer_h", t_h)):
+        sd.update({f"maskgit.{name}.{k}": v for k, v in reference_prior_sd(prior).items()})
+    return sd
+
+
+def _fe_names(n_stages: int) -> dict:
+    """Port ``Unet1D_0`` prefix -> the reference Unet1D's state-dict prefix,
+    as ``import_reference.fe_from_state_dict`` walks it."""
+    out = {"Conv_0": "unet.init_conv"}
+    inner = {"UnetBlock_0": "block1", "UnetBlock_1": "block2", "WSConv1d_0": "proj",
+             "GroupNorm_0": "norm", "Snake_0": "act", "Conv_0": "res_conv"}
+
+    def resnet(port, ref):
+        for a, b in inner.items():
+            out[f"{port}.{a}"] = f"{ref}.{b}"
+        for u in ("UnetBlock_0", "UnetBlock_1"):
+            for a in ("WSConv1d_0", "GroupNorm_0", "Snake_0"):
+                out[f"{port}.{u}.{a}"] = f"{ref}.{inner[u]}.{inner[a]}"
+
+    def stage(ref, res, pre, attn, conv, conv_key, linear=True):
+        resnet(f"ResnetBlock1d_{res}", f"{ref}.0")
+        resnet(f"ResnetBlock1d_{res + 1}", f"{ref}.1")
+        out[f"_PreNormResidual_{pre}.ChanLayerNorm_0"] = f"{ref}.2.fn.norm"
+        out[f"{attn}.Conv_0"] = f"{ref}.2.fn.fn.to_qkv"
+        out[f"{attn}.Conv_1"] = f"{ref}.2.fn.fn.to_out" + (".0" if linear else "")
+        if linear:
+            out[f"{attn}.ChanLayerNorm_0"] = f"{ref}.2.fn.fn.to_out.1"
+        out[f"Conv_{conv}"] = f"{ref}.{conv_key}"
+
+    n = n_stages
+    for i in range(n):
+        stage(f"unet.downs.{i}", 2 * i, i, f"LinearAttention1d_{i}", i + 1, "3")
+    resnet(f"ResnetBlock1d_{2 * n}", "unet.mid_block1")
+    out[f"_PreNormResidual_{n}.ChanLayerNorm_0"] = "unet.mid_attn.fn.norm"
+    out["Attention1d_0.Conv_0"] = "unet.mid_attn.fn.fn.to_qkv"
+    out["Attention1d_0.Conv_1"] = "unet.mid_attn.fn.fn.to_out"
+    resnet(f"ResnetBlock1d_{2 * n + 1}", "unet.mid_block2")
+    for j in range(n):
+        stage(f"unet.ups.{j}", 2 * n + 2 + 2 * j, n + 1 + j, f"LinearAttention1d_{n + j}",
+              n + 1 + j, "3.1" if j < n - 1 else "3")
+    out[f"Conv_{2 * n + 1}"] = "unet.last_up.1"
+    resnet(f"ResnetBlock1d_{4 * n + 2}", "unet.final_res_block")
+    for k in range(3):
+        out[f"Conv_{2 * n + 2 + k}"] = f"unet.final_conv.{k}"
+    return out
+
+
+def reference_stage3_sd(fe, tau: float) -> dict:
+    """A port ``FidelityEnhancer`` and its tau -> a stage-3 LightningModule's
+    state dict: ``fidelity_enhancer.unet.*`` and the ``fidelity_enhancer.tau``
+    buffer."""
+    n_stages = sum(1 for c, _ in fe.Unet1D_0.named_children()
+                   if c.startswith("LinearAttention1d_")) // 2
+    sd = _renamed(fe.Unet1D_0, _fe_names(n_stages), "fidelity_enhancer.",
+                  {"a": (1, -1, 1), "g": (1, -1, 1)})
+    sd["fidelity_enhancer.tau"] = np.float32(tau) * np.ones(1, np.float32)
+    return sd
+
+
+def reference_fcn_sd(fcn) -> dict:
+    """A port ``FCN`` -> the reference ``FCNBaseline.state_dict()``
+    (``layers.{i}.layers.{0: conv, 1: bn}``, ``final``)."""
+    rename = {f"{kind}_{i}": f"layers.{i}.layers.{j}" for i in range(3)
+              for kind, j in (("Conv", 0), ("BatchNorm", 1))}
+    return _renamed(fcn, {**rename, "Dense_0": "final"}, "")
+
+
+def write_reference_ckpts(torch, out_dir, model, vq_l, vq_h, t_l, t_h, fe, tau, fcn) -> dict:
+    """``torch.save`` the four reference checkpoints into ``out_dir``: the
+    stages as Lightning checkpoints (``state_dict``, ``hyper_parameters``,
+    the stage-3 file with frozen stage-2 keys the importer must skip), the
+    FCN as a raw state dict. -> {stage: path}."""
+    os.makedirs(out_dir, exist_ok=True)
+    s3 = reference_stage3_sd(fe, tau)
+    s3["fidelity_enhancer.tau"] = torch.from_numpy(s3["fidelity_enhancer.tau"])
+    s3["maskgit.transformer_l.bias"] = torch.zeros(2, 3)  # frozen stage-2 keys: ignored
+    files = {"stage1": reference_stage1_sd(model, vq_l, vq_h),
+             "stage2": reference_stage2_sd(t_l, t_h), "stage3": s3}
+    paths = {}
+    for name, sd in files.items():
+        paths[name] = os.path.join(out_dir, f"{name}.ckpt")
+        torch.save({"state_dict": sd, "hyper_parameters": {"stage": name}, "epoch": 0,
+                    "global_step": 0, "pytorch-lightning_version": "2.4.0"}, paths[name])
+    paths["fcn"] = os.path.join(out_dir, "fcn.ckpt")
+    torch.save(reference_fcn_sd(fcn), paths["fcn"])
+    return paths
 
 
 def check(cond, msg):
@@ -490,16 +694,18 @@ class Work:
         self.stage["fcn"] = os.path.join(ckpt, "fcn")
 
 
-def cli_subprocess(work, script, cli_args):
-    """``python -m tvqvae_tpu_torch.scripts.<script>`` over the run's dataset
-    and written checkpoints, started in the background."""
+def cli_subprocess(work, script, cli_args, code=None):
+    """``python -m tvqvae_tpu_torch.scripts.<script>`` (or ``python -c
+    code`` with the same arguments) over the run's dataset and written
+    checkpoints, started in the background."""
     repo = os.path.dirname(os.path.abspath(__file__))
     # its host work is file reads and numpy; two threads leave the cores to
     # the card-vs-CPU checks that run beside it
     env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
            "OMP_NUM_THREADS": "2"}
-    cmd = [sys.executable, "-m", f"tvqvae_tpu_torch.scripts.{script}", "--dataset_file",
-           work.dataset, "--model_save_dir", work.models, *cli_args]
+    head = ["-c", code] if code else ["-m", f"tvqvae_tpu_torch.scripts.{script}"]
+    cmd = [sys.executable, *head, "--dataset_file", work.dataset, "--model_save_dir",
+           work.models, *cli_args]
     return subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -1367,10 +1573,11 @@ def eval_phase(torch, vq_kernel, work, data, metrics, device="cuda"):
                             (TrainedModelSampler, "sample"), (TrainedModelSampler, "enhance"),
                             (TrainedModelSampler, "reconstruct")]) as secs:
             t0 = time.perf_counter()
-            scores = evaluate(cfg, data, os.path.dirname(work.stage["1"]), logger, batch_size=B,
-                              min_num_gen=EVAL_SERIES, use_fe=True,
-                              feature_extractor_type=cfg.evaluation.feature_extractor_type,
-                              fid_method="svd", device=device)
+            scores, images = evaluate(
+                cfg, data, os.path.dirname(work.stage["1"]), logger, batch_size=B,
+                min_num_gen=EVAL_SERIES, use_fe=True,
+                feature_extractor_type=cfg.evaluation.feature_extractor_type,
+                fid_method="svd", device=device, figures=False)
             eval_s = time.perf_counter() - t0
     finally:
         logger.close()
@@ -1387,9 +1594,20 @@ def eval_phase(torch, vq_kernel, work, data, metrics, device="cuda"):
     want = [k for k in JAX_EVAL_KEYS if k != "FID_svq"]  # stage 3 trained at tau 0
     check(sorted(scores) == sorted(want) and tau in EVAL_TAUS
           and bool(np.isfinite(list(scores.values())).all()), f"bad scores {scores}, tau {tau}")
+    want_images = {*JAX_EVAL_IMAGES, *(f"conditional_class_{c}.png" for c in range(data.n_classes))}
+    check(set(images) == want_images, f"evaluate's images {sorted(images)}")
+    for c in range(data.n_classes):
+        xc = images[f"conditional_class_{c}.png"]
+        check(xc.shape == (16, C, L) and bool(np.isfinite(xc).all()), f"class {c} grid {xc.shape}")
+    for name in ("pca_test_gen.png", "tsne_test_gen.png", "pca_test_gen_fe.png"):
+        check(all(np.isfinite(e).all() for _, e in images[name]["sets"]), f"{name} not finite")
     print(f"[eval] evaluate() in the process ({EVAL_SERIES} series, ROCKET features, FID by svd, "
           f"against the {len(data.X_test)} test series) in {eval_s:.2f} s: "
           + ", ".join(f"{k} {v:.4g}" for k, v in scores.items()), flush=True)
+    print(f"[eval] evaluate() images' data (figures=False): the JAX CLI's {len(images)} "
+          f"names; PCA and t-SNE of the test and generated features finite, "
+          f"{data.n_classes} conditional batches of 16 (C, L) finite; t-SNE KL "
+          f"{images['tsne_test_gen.png']['kl_divergence']:.4f}", flush=True)
     print(f"[eval] evaluate() seconds by call: "
           + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
           + f", the rest (set-up: checkpoints read, the bank drawn) {eval_s - sum(secs.values()):.2f}"
@@ -1410,17 +1628,64 @@ def eval_phase(torch, vq_kernel, work, data, metrics, device="cuda"):
     return launches, rocket_32_ms
 
 
-def check_evaluated(proc, t0):
-    """Wait for the evaluate CLI and check its printed results: the JAX
-    package's names (``FID_svq`` only where stage 3 trained at tau > 0; here
-    at 0), every value finite."""
+# the evaluate CLI where the card has no matplotlib: ``run(args,
+# figures=False)``, then one line of each image's data (shapes, finite)
+EVALUATE_NO_FIGURES = """\
+import json, sys
+import numpy as np
+from tvqvae_tpu_torch.scripts import evaluate
+out = evaluate.run(evaluate.build_argparser().parse_args(sys.argv[1:]), figures=False)
+def shape(d):
+    arrays = [e for _, e in d["sets"]] if isinstance(d, dict) else [] if d is None else [d]
+    return [[list(a.shape), bool(np.isfinite(a).all())] for a in arrays]
+print("[images] " + json.dumps({k: shape(v) for k, v in out["images"].items()}))
+"""
+
+
+def evaluate_cli_start(work, figures, device="cuda", config=None):
+    """The evaluate CLI over the run's dataset and checkpoints, in a
+    subprocess beside what follows: ``python -m ...scripts.evaluate``
+    where matplotlib is importable (it writes the JAX CLI's images), else
+    ``run(args, figures=False)`` (every image's data computed, nothing
+    drawn). ``config``: a config file for the CLI. -> (the subprocess, its
+    start time, ``figures``)."""
+    args = ["--min_num_gen_samples", str(EVAL_SERIES), "--fid_method", "svd",
+            "--run_dir", os.path.join(work.root, "runs"), "--device", device,
+            *(["--config", config] if config else [])]
+    t0 = time.perf_counter()
+    return cli_subprocess(work, "evaluate", args, None if figures else EVALUATE_NO_FIGURES), \
+        t0, figures
+
+
+def check_evaluated(proc, t0, figures, work, n_classes):
+    """Wait for the evaluate CLI and check its printed results (the JAX
+    package's names, ``FID_svq`` only where stage 3 trained at tau > 0, here
+    at 0; every value finite) and its images: the JAX CLI's file names
+    written, or without matplotlib each image's data computed and finite."""
     out, _ = proc.communicate(timeout=600)
     check(proc.returncode == 0, f"evaluate exited {proc.returncode}:\n{out[-3000:]}")
+    want_images = {*JAX_EVAL_IMAGES, *(f"conditional_class_{c}.png" for c in range(n_classes))}
+    if figures:
+        run_dir = os.path.join(work.root, "runs", "trajectories_evaluate")
+        images = {f for f in os.listdir(run_dir) if f.endswith(".png")}
+        check(images == want_images, f"evaluate wrote images {sorted(images)}")
+        how = f"a subprocess; its {len(images)} images written"
+    else:
+        line = next(x for x in out.splitlines() if x.startswith("[images] "))
+        images = json.loads(line[len("[images] "):])
+        out = out.replace(line, "")
+        check(set(images) == want_images and all(ok for v in images.values() for _, ok in v),
+              f"evaluate's image data {images}")
+        tsne = [shape[0] for shape, _ in images["tsne_test_gen.png"]]
+        cond = images["conditional_class_0.png"][0][0]
+        how = (f"a subprocess calling run(args, figures=False): no matplotlib; the data of its "
+               f"{len(images)} images computed and finite (t-SNE sets of {tsne} points, "
+               f"conditional batches {cond})")
     results = json.loads(out[out.rindex("\n{") + 1:])
     want = [k for k in JAX_EVAL_KEYS if k != "FID_svq"]
     check(sorted(results) == sorted(want), f"evaluate printed {sorted(results)}")
     check(bool(np.isfinite(list(results.values())).all()), f"evaluate: non-finite {results}")
-    print(f"[eval] evaluate CLI (a subprocess, --min_num_gen_samples {EVAL_SERIES} --fid_method "
+    print(f"[eval] evaluate CLI ({how}; --min_num_gen_samples {EVAL_SERIES} --fid_method "
           f"svd): the JAX package's {len(results)} result names, finite, in "
           f"{time.perf_counter() - t0:.1f} s from its start: "
           + ", ".join(f"{k} {v:.4g}" for k, v in results.items()), flush=True)
@@ -2996,6 +3261,269 @@ def preprocess_phase(torch, vq_kernel, work, device="cuda"):
     return launches
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to its deterministic algorithms while inside."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _random_bn_statistics(torch, modules, g):
+    """Trained-like BatchNorm statistics (means ~0.1 N(0, 1), variances in
+    [0.5, 1.5)), so that a swapped mean and variance would show."""
+    with torch.no_grad():
+        for m in modules:
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                    n = mod.running_mean.numel()
+                    mod.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                    mod.running_var.copy_(0.5 + torch.rand(n, generator=g))
+
+
+def import_phase(torch, vq_kernel, work, device="cuda", config=None):
+    """Reference checkpoints into the port at the published width: seeded
+    port modules (stage 1 with random BatchNorm statistics, both priors with
+    the wrapper's projections as the reference has them, the enhancer, the
+    FCN) written as the reference's Lightning checkpoints
+    (``write_reference_ckpts``: the newer x-transformers naming, a stage-3
+    tau of IMPORT_TAU); the import CLI on them in a subprocess; then,
+    counted, ``from_checkpoints`` of its output without and with the
+    enhancer against the in-memory sampler of the same modules: a 32-batch
+    with injected noise (timed, and its repeat's gap under cuDNN's default
+    algorithms; then under deterministic cuDNN tokens equal and series
+    bit-equal) and ``reconstruct`` of 32 series (2 VQ launches, bit-equal
+    under deterministic cuDNN); after the count, one sample
+    batch under ``profiling.trace`` with an ``annotate("sample")`` span, the
+    trace read back. -> the VQ kernel launches of the counted part."""
+    from tvqvae_tpu_torch.generation import TrainedModelSampler
+    from tvqvae_tpu_torch.models.fcn import FCN
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models.layers import init_weights_
+    from tvqvae_tpu_torch.models.maskgit import (FrozenStage1, build_transformers, encode_tokens,
+                                                 iterative_decoding)
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.scripts._cli import load_config
+    from tvqvae_tpu_torch.train.stage2 import init_stage2
+    from tvqvae_tpu_torch.train.stage3 import init_stage3
+    from tvqvae_tpu_torch.utils import profiling
+    from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = load_config(config)
+    dev = torch.device(device)
+    g = torch.Generator().manual_seed(12)
+    spec = Stage1Spec.from_config(cfg, L, C)
+    model, vq_l, vq_h = init_stage1(spec, g, dev)
+    t_l, t_h = init_stage2(*build_transformers(cfg, spec, N_CLASSES, (True, True)), g, dev)
+    fe = init_stage3(FidelityEnhancer.from_config(cfg, L, C), g, dev)
+    fcn = init_weights_(FCN(C, N_CLASSES), g).to(dev)
+    _random_bn_statistics(torch, (model, t_h, fcn), g)
+    for m in (model, t_l, t_h, fe, fcn):
+        m.eval()
+
+    t0 = time.perf_counter()
+    paths = write_reference_ckpts(torch, os.path.join(work.root, "reference"), model, vq_l, vq_h,
+                                  t_l, t_h, fe, IMPORT_TAU, fcn)
+    write_s = time.perf_counter() - t0
+    out_dir = os.path.join(work.root, "imported")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-m", "tvqvae_tpu_torch.scripts.import_ckpt",
+           *(a for s in ("stage1", "stage2", "stage3", "fcn") for a in (f"--{s}_ckpt", paths[s])),
+           "--out_dir", out_dir, "--device", device, *(["--config", config] if config else [])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"import_ckpt exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("[import] seconds by stage "))
+    by_stage = json.loads(line[len("[import] seconds by stage "):])
+    written = {s: os.path.join(out_dir, s) for s in ("stage1", "stage2", "stage3", "fcn")}
+    metas = {s: load_checkpoint(p)[1] for s, p in written.items()}
+    check(metas["stage1"]["n_classes"] == N_CLASSES and metas["stage1"]["input_length"] == L
+          and metas["stage2"]["force_projections"] is True
+          and abs(metas["stage3"]["tau"] - IMPORT_TAU) < 1e-6, f"imported meta {metas}")
+    print(f"[import] reference Lightning checkpoints from seeded modules (torch.save, "
+          f"{write_s:.2f} s): " + ", ".join(f"{s} {os.path.getsize(p)} bytes"
+                                            for s, p in paths.items()), flush=True)
+    print(f"[import] import_ckpt CLI (a subprocess) in {cli_s:.2f} s; seconds by stage (read, "
+          f"convert, validate against a fresh init on the card, write): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in by_stage.items()) + "; wrote "
+          + ", ".join(f"{s} {os.path.getsize(p)} bytes" for s, p in written.items()), flush=True)
+
+    frozen = FrozenStage1(model, vq_l, vq_h)
+    rng = np.random.default_rng(31)
+    series = rng.normal(size=(B, C, L)).astype(np.float32)
+    numbers = {}
+    # ---- the imported checkpoints served, counted -----------------------
+    vq_kernel.launch_count = 0
+    for use_fe in (False, True):
+        t0 = time.perf_counter()
+        disk = TrainedModelSampler.from_checkpoints(
+            cfg, written["stage1"], written["stage2"], written["stage3"],
+            use_fidelity_enhancer=use_fe, batch_size=B, device=device)
+        build_s = time.perf_counter() - t0
+        check(disk.tau == IMPORT_TAU, f"imported tau {disk.tau}")
+        mem = TrainedModelSampler.__new__(TrainedModelSampler)
+        mem._assemble(cfg, frozen, t_l, t_h, N_CLASSES, B, dev, fe, use_fe)
+        noise = gumbel_noise(torch, disk.mg_spec, B, rng)
+        first = disk.sample(B, noise=[noise])  # also the warm-up
+        t0 = time.perf_counter()
+        again = disk.sample(B, noise=[noise])
+        sample_ms = 1e3 * (time.perf_counter() - t0)
+        # cuDNN's default transposed-convolution algorithms are not
+        # bit-reproducible from call to call; under deterministic ones two
+        # samplers of the same weights agree bit for bit
+        repeat_gap = max(float(np.abs(a - b).max() / np.abs(b).max())
+                         for a, b in zip(first, again))
+        with deterministic_cudnn(torch):
+            got = disk.sample(B, noise=[noise])
+            ref = mem.sample(B, noise=[noise])
+        check(all(np.array_equal(a, b) for a, b in zip(got, ref)),
+              f"the sampler from imported checkpoints (enhancer {use_fe}) is not bit-equal to the "
+              f"in-memory one: {[float(np.abs(a - b).max()) for a, b in zip(got, ref)]}")
+        with torch.inference_mode():
+            toks = [iterative_decoding(s.mg_spec, lambda a, c, s=s: s.t_l(a, None, c),
+                                       lambda a, b, c, s=s: s.t_h(a, b, c), B, None,
+                                       device=device, noise=noise) for s in (disk, mem)]
+        check(all(torch.equal(a, b) for a, b in zip(*toks)),
+              "tokens sampled from the imported checkpoints differ from the in-memory sampler's")
+        numbers[use_fe] = (build_s, sample_ms, repeat_gap)
+    before = vq_kernel.launch_count
+    t0 = time.perf_counter()
+    disk.reconstruct(series)
+    rec_ms = 1e3 * (time.perf_counter() - t0)
+    check(vq_kernel.launch_count - before == 2,
+          f"reconstruct from the import launched the VQ kernel {vq_kernel.launch_count - before} "
+          f"times, not 2")
+    with deterministic_cudnn(torch):
+        check(np.array_equal(disk.reconstruct(series), mem.reconstruct(series)),
+              "reconstruct from the import is not bit-equal to the in-memory one")
+    with torch.inference_mode():
+        xb = torch.from_numpy(series).to(dev)
+        for band in ("lf", "hf"):
+            check(torch.equal(encode_tokens(disk.frozen, xb, band), encode_tokens(frozen, xb, band)),
+                  f"{band} reconstruct tokens from the import differ from the in-memory ones")
+    launches = vq_kernel.launch_count
+    # ---------------------------------------------------------------------
+    print(f"[import] from_checkpoints of the import built in {numbers[False][0]:.2f} s (no "
+          f"enhancer) / {numbers[True][0]:.2f} s (enhancer, tau {disk.tau}); a {B}-batch with "
+          f"injected noise: tokens equal and, under deterministic cuDNN, x_l/x_h/x bit-equal to "
+          f"the in-memory sampler of the same modules; {numbers[False][1]:.2f} / "
+          f"{numbers[True][1]:.2f} ms (default cuDNN, whose repeat of one batch differs by "
+          f"{numbers[False][2]:.3g} / {numbers[True][2]:.3g} of scale); reconstruct of {B} series "
+          f"{rec_ms:.2f} ms, bit-equal, tokens equal; VQ kernel launches {launches}", flush=True)
+
+    trace_dir = os.path.join(work.root, "trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("sample"):
+            disk.sample(B, noise=[noise])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "sample" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(spans and (kernels or dev.type != "cuda"), f"the trace holds {len(spans)} sample spans and {len(kernels)} "
+          f"device kernels")
+    print(f"[import] profiling.trace of one sample batch: {len(events)} events in "
+          f"{os.path.getsize(os.path.join(trace_dir, 'trace.json'))} bytes; the 'sample' span "
+          f"{max(e['dur'] for e in spans) / 1e3:.2f} ms; {len(kernels)} device kernels, "
+          f"{sum(e.get('dur', 0) for e in kernels) / 1e3:.2f} ms", flush=True)
+    del disk, mem, frozen, model, t_l, t_h, fe, fcn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def analysis_phase(torch, work, figures, device="cuda"):
+    """The analysis CLI's ``run(args, figures=...)`` in the process on a
+    dataset of ANALYSIS_SERIES synthetic series at ANALYSIS_L (test split
+    above 512), ANALYSIS_GEN more as the generated set, and the flyability
+    CLI's JSON: its seconds by step, ROCKET features, FID and the statistics
+    on the card, PCA and t-SNE of 2 x 512 feature rows on the card with the
+    t-SNE's KL and trustworthiness; then the same PCA and t-SNE on the CPU:
+    the coordinates within 1e-4 of their scale, the KL within 5%."""
+    from tvqvae_tpu_torch.data.dataset import make_synthetic_trajectories, save_npz
+    from tvqvae_tpu_torch.scripts import analyze
+    from tvqvae_tpu_torch.utils import plots
+
+    root = os.path.join(work.root, "analysis")
+    os.makedirs(root, exist_ok=True)
+    save_npz(os.path.join(root, "flights.npz"),
+             *make_synthetic_trajectories(n=ANALYSIS_SERIES, channels=C, length=ANALYSIS_L,
+                                          n_classes=N_CLASSES, seed=41))
+    Xg, _ = make_synthetic_trajectories(n=ANALYSIS_GEN, channels=C, length=ANALYSIS_L,
+                                        n_classes=N_CLASSES, seed=42)
+    np.savez_compressed(os.path.join(root, "synthetic.npz"), X=Xg, y=np.zeros(len(Xg), np.int64))
+    save_dir = os.path.join(root, "out")
+    argv = ["--dataset_file", os.path.join(root, "flights.npz"),
+            "--synthetic_file", os.path.join(root, "synthetic.npz"),
+            "--distances_json", os.path.join(work.root, "flyability", "synthetic_distances.json"),
+            "--save_dir", save_dir, "--rocket_num_kernels", str(ANALYSIS_KERNELS),
+            "--device", device]
+    inputs = {}
+    saved = {name: getattr(plots, name) for name in ("pca_data", "tsne_data")}
+
+    def capture(name):
+        def wrapped(*args, **kwargs):
+            inputs[name] = (args, kwargs)
+            return saved[name](*args, **kwargs)
+        return wrapped
+
+    for name in saved:
+        setattr(plots, name, capture(name))
+    try:
+        t0 = time.perf_counter()
+        out = analyze.run(analyze.build_argparser().parse_args(argv), figures=figures)
+        run_s = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(plots, name, fn)
+    res = out["results"]
+    check(set(res) == {"FID", "MDD", "ACD", "SD", "KD"} and bool(np.isfinite(list(res.values())).all()),
+          f"analyze results {res}")
+    names = {"timeseries_ci.png", "distribution_plots.png", "visual_inspection.png",
+             "trajectories_generated.png", "trajectories_real.png", "clustering_real.png",
+             "altitude_map_generated.png", "altitude_generated.png", "pca.png", "tsne.png",
+             *(f"{kind}_{tag}.png" for kind in ("correlation_heatmap", "percentile_plots")
+               for tag in ("euclidean", "spherical"))}
+    check(set(out["figures"]) == names, f"analyze figures {sorted(out['figures'])}")
+    pngs = {f for f in os.listdir(save_dir) if f.endswith(".png")}
+    check(pngs == (names if figures else set()), f"analyze wrote {sorted(pngs)}")
+    pca, tsne = out["figures"]["pca.png"], out["figures"]["tsne.png"]
+    n_points = sum(len(e) for _, e in tsne["sets"])
+    n_test = ANALYSIS_SERIES - int(0.9 * ANALYSIS_SERIES)  # get_data's split
+    check(n_points == min(512, n_test) + min(512, ANALYSIS_GEN) and all(np.isfinite(e).all() for _, e in tsne["sets"] + pca["sets"]),
+          f"t-SNE of {n_points} points, or non-finite embeddings")
+
+    args, kwargs = inputs["pca_data"]
+    pca_cpu = plots.pca_data(*args, **{**kwargs, "device": "cpu"})
+    scale = max(float(np.abs(e).max()) for _, e in pca_cpu["sets"])
+    pca_err = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
+                  zip(pca["sets"], pca_cpu["sets"])) / scale
+    check(pca_err <= 1e-4, f"PCA card vs CPU off by {pca_err} of scale")
+    args, kwargs = inputs["tsne_data"]
+    t0 = time.perf_counter()
+    tsne_cpu = plots.tsne_data(*args, **{**kwargs, "device": "cpu"})
+    cpu_tsne_s = time.perf_counter() - t0
+    kl_gap = abs(tsne["kl_divergence"] - tsne_cpu["kl_divergence"]) / tsne_cpu["kl_divergence"]
+    check(kl_gap <= 0.05, f"t-SNE KL card {tsne['kl_divergence']} vs CPU "
+          f"{tsne_cpu['kl_divergence']}")
+    secs = out["seconds"]
+    print(f"[analysis] analyze.run (figures {'drawn' if figures else 'skipped: no matplotlib'}) on "
+          f"{ANALYSIS_SERIES} series of L={ANALYSIS_L} and {ANALYSIS_GEN} generated, "
+          f"{ANALYSIS_KERNELS} ROCKET kernels, in {run_s:.2f} s; seconds by step: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()), flush=True)
+    print(f"[analysis] results " + ", ".join(f"{k} {v:.4g}" for k, v in res.items())
+          + f"; PCA of {sum(len(e) for _, e in pca['sets'])} rows {1e3 * secs['pca']:.1f} ms, "
+          f"within {pca_err:.3g} of scale of the CPU's; t-SNE of {n_points} points "
+          f"{1e3 * secs['tsne']:.1f} ms ({tsne['n_iter'] + 1} iterations; the CPU "
+          f"{1e3 * cpu_tsne_s:.1f} ms): KL {tsne['kl_divergence']:.4f} (CPU "
+          f"{tsne_cpu['kl_divergence']:.4f}, {kl_gap:.2%} apart), trustworthiness "
+          f"{tsne['trustworthiness']:.4f} (CPU {tsne_cpu['trustworthiness']:.4f})", flush=True)
+    return secs
+
+
 def main():
     """Exit 1 without a card, or outside a checkout (the package does not
     import); else every phase, with the run's files in a temp directory."""
@@ -3131,15 +3659,14 @@ def smoke(torch, work, t_start):
     lap("flyability")
     preprocess_launches = preprocess_phase(torch, vq_kernel, work)
     lap("preprocess")
+    import_launches = import_phase(torch, vq_kernel, work)
+    lap("import")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
                                            data.n_classes, step_ms)
     lap("ckpt")
-    t_eval = time.perf_counter()
-    evaluating = cli_subprocess(work, "evaluate", [
-        "--min_num_gen_samples", str(EVAL_SERIES), "--fid_method", "svd",
-        "--run_dir", os.path.join(work.root, "runs"), "--device", "cuda"])
+    evaluating = evaluate_cli_start(work, figures=found["matplotlib"])
 
     # ---- checks after the counted run: the untimed ones while the ------
     # ---- generate and evaluate CLIs run, then the timed ones -----------
@@ -3156,9 +3683,9 @@ def smoke(torch, work, t_start):
         small_resume_check(torch, work)
         lap("untimed checks")
         check_generated(*generating, work)
-        check_evaluated(evaluating, t_eval)
+        check_evaluated(*evaluating, work, data.n_classes)
     except BaseException:
-        for proc in (generating[0], evaluating):
+        for proc in (generating[0], evaluating[0]):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -3181,8 +3708,8 @@ def smoke(torch, work, t_start):
                           f"reconstruct {band} tokens differ from the plain VQ version")
                     plain.append(sampler.frozen.model.decode(lookup_codes(state, idx_p), band))
                 ref = torch.from_numpy(rec[start:start + B])
-                # relative to the output's scale: cuDNN may pick other conv algorithms
-                # as free memory changes between the two decodes
+                # relative to the output's scale: cuDNN's default transposed-conv
+                # algorithms are not bit-reproducible from call to call ([import])
                 gap = (plain[0] + plain[1]).cpu().sub(ref).abs().max() / ref.abs().max()
                 rel = max(rel, float(gap))
                 check(rel <= 1e-4,
@@ -3194,11 +3721,13 @@ def smoke(torch, work, t_start):
         fe_sampler_check(torch, Config, TrainedModelSampler)
         check_flyability_cli(*flying, work)
     except BaseException:
-        if flying[0].poll() is None:
+        if flying[0] is not None and flying[0].poll() is None:
             flying[0].kill()
             flying[0].wait()
         raise
     lap("timed checks")
+    analysis_phase(torch, work, figures=found["matplotlib"])
+    lap("analysis")
     profile_phase(torch, sampler, series, wall_ms)
     train_profile(torch, trained, data, step_ms)
     stage2_profile(torch, stage2, tok_l, tok_h, y, stage2_ms)
@@ -3215,12 +3744,13 @@ def smoke(torch, work, t_start):
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
                      + eval_launches + bf16_launches + ess_launches + quality_launches
-                     + preprocess_launches + ckpt_launches),
+                     + preprocess_launches + import_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
                              "ess": ess_launches, "quality": quality_launches,
-                             "preprocess": preprocess_launches, "ckpt": ckpt_launches},
+                             "preprocess": preprocess_launches, "import": import_launches,
+                             "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

@@ -37,6 +37,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from chip_smoke import reference_stage3_sd
 from tvqvae_tpu.config import Config as JConfig
 from tvqvae_tpu.models import fidelity_enhancer as jfe
 from tvqvae_tpu.models import maskgit as jmg
@@ -239,69 +240,26 @@ def test_unported_enhancer_options_raise():
 # the converter against tvqvae_tpu/utils/import_reference.py's layout
 
 
-def _reference_names(n_stages: int) -> dict:
-    """Port key prefix -> the reference Unet1D's state-dict prefix, as
-    ``import_reference.fe_from_state_dict`` reads it."""
-    out = {"Conv_0": "unet.init_conv"}
-
-    def stage(ref, res, pre, attn, conv, conv_key, linear=True):
-        out[f"ResnetBlock1d_{res}"] = f"{ref}.0"
-        out[f"ResnetBlock1d_{res + 1}"] = f"{ref}.1"
-        out[f"_PreNormResidual_{pre}.ChanLayerNorm_0"] = f"{ref}.2.fn.norm"
-        out[f"{attn}.Conv_0"] = f"{ref}.2.fn.fn.to_qkv"
-        out[f"{attn}.Conv_1"] = f"{ref}.2.fn.fn.to_out" + (".0" if linear else "")
-        if linear:
-            out[f"{attn}.ChanLayerNorm_0"] = f"{ref}.2.fn.fn.to_out.1"
-        if conv is not None:
-            out[f"Conv_{conv}"] = f"{ref}.{conv_key}"
-
-    n = n_stages
-    for i in range(n):
-        stage(f"unet.downs.{i}", 2 * i, i, f"LinearAttention1d_{i}", i + 1, "3")
-    out[f"ResnetBlock1d_{2 * n}"] = "unet.mid_block1"
-    out[f"_PreNormResidual_{n}.ChanLayerNorm_0"] = "unet.mid_attn.fn.norm"
-    out["Attention1d_0.Conv_0"] = "unet.mid_attn.fn.fn.to_qkv"
-    out["Attention1d_0.Conv_1"] = "unet.mid_attn.fn.fn.to_out"
-    out[f"ResnetBlock1d_{2 * n + 1}"] = "unet.mid_block2"
-    for j in range(n):
-        stage(f"unet.ups.{j}", 2 * n + 2 + 2 * j, n + 1 + j, f"LinearAttention1d_{n + j}",
-              n + 1 + j, "3.1" if j < n - 1 else "3")
-    out[f"Conv_{2 * n + 1}"] = "unet.last_up.1"
-    out[f"ResnetBlock1d_{4 * n + 2}"] = "unet.final_res_block"
-    for k in range(3):
-        out[f"Conv_{2 * n + 2 + k}"] = f"unet.final_conv.{k}"
-    return out
-
-
-_INNER = {"UnetBlock_0": "block1", "UnetBlock_1": "block2", "WSConv1d_0": "proj",
-          "GroupNorm_0": "norm", "Snake_0": "act", "Conv_0": "res_conv"}
-
-
 def test_converter_names_follow_import_reference_layout(fe_draws):
-    """A reference-named Unet1D state dict, with a distinct random value per
-    leaf, through ``import_reference.fe_from_state_dict`` and then
-    ``fe_from_jax``, loads strictly into the port and puts every value where
-    the naming says; the flax tree it gives has the JAX init's paths."""
-    names = _reference_names(len(MULTS))
+    """The port's enhancer, a distinct random value per leaf, written in the
+    reference Unet1D's naming (``chip_smoke.reference_stage3_sd``), through
+    ``import_reference.fe_from_state_dict`` and then ``fe_from_jax``, loads
+    strictly into the port with every value in place; the flax tree it
+    gives has the JAX init's paths."""
     fe = tfe.FidelityEnhancer(L, C, 8, MULTS, GROUPS, 0.0)
     rng = np.random.default_rng(0)
-    ref_sd, expected = {}, {}
-    for key, v in fe.Unet1D_0.state_dict().items():
-        parts = key.split(".")
-        top = next(p for p in sorted(names, key=len, reverse=True)
-                   if key == p or key.startswith(p + "."))
-        rest = parts[len(top.split(".")):]
-        rest = [_INNER.get(p, p) for p in rest] if top.startswith("ResnetBlock1d") else rest
-        val = rng.normal(size=v.shape).astype(np.float32)
-        # the reference keeps Snake's a and ChanLayerNorm's g as (1, C, 1)
-        shape = (1, -1, 1) if rest[-1] in ("a", "g") else v.shape
-        ref_sd[".".join([names[top], *rest])] = val.reshape(shape)
-        expected[key] = val
-    params, tau, inferred = import_reference.fe_from_state_dict(ref_sd)
+    with torch.no_grad():
+        for v in fe.state_dict().values():
+            v.copy_(torch.from_numpy(rng.normal(size=tuple(v.shape)).astype(np.float32)))
+    expected = {k: v.clone() for k, v in fe.Unet1D_0.state_dict().items()}
+    sd = reference_stage3_sd(fe, 0.0)
+    sd["fidelity_enhancer.tau"] = torch.from_numpy(sd["fidelity_enhancer.tau"])
+    params, tau, inferred = import_reference.fe_from_state_dict(sd)
     assert tau == 0.0 and inferred["dim"] == 8 and inferred["dim_mults"] == list(MULTS)
-    fe.load_state_dict(convert.fe_from_jax(params))
+    out = tfe.FidelityEnhancer(L, C, 8, MULTS, GROUPS, 0.0)
+    out.load_state_dict(convert.fe_from_jax(params))
     for key, val in expected.items():
-        np.testing.assert_array_equal(fe.Unet1D_0.state_dict()[key].numpy(), val, err_msg=key)
+        torch.testing.assert_close(out.Unet1D_0.state_dict()[key], val, rtol=0, atol=0, msg=key)
     jax_paths = {p for p, _ in convert._flatten(fe_draws[0][0])}
     assert {p for p, _ in convert._flatten(params)} == jax_paths
 

@@ -16,8 +16,15 @@ the same over the enhanced samples (``... with FE``), and ``FID_svq`` of
 the SVQ round trip at stage 3's tau when it is above 0. The metrics go to
 the run directory's ``metrics.jsonl`` (``RunLogger``) and to stdout as JSON.
 
-Not ported: the images (visual inspection, PCA, t-SNE, the per-class
-grids), which need the JAX package's ``utils/plots.py`` and matplotlib.
+The images are the JAX CLI's, under its file names in the run directory:
+``visual_inspection.png``, ``pca_test_gen.png`` and ``tsne_test_gen.png``
+of the test and generated features, ``visual_inspection_fe.png`` and
+``pca_test_gen_fe.png`` with the enhancer, and ``conditional_class_<k>.png``
+for every class (``min(batch_size, 16)`` samples conditioned on it, seeded
+``seed + k``). The embeddings run on the device (``utils/embedding.py``,
+no scikit-learn). ``run(args, figures=False)`` computes every image's data
+and draws nothing (matplotlib is imported by the drawing alone; the CLI, as
+the JAX package's, needs it).
 """
 
 import argparse
@@ -29,13 +36,18 @@ from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.evaluation import Metrics
 from tvqvae_tpu_torch.generation import TrainedModelSampler
 from tvqvae_tpu_torch.scripts._cli import load_config
+from tvqvae_tpu_torch.utils import plots
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
 from tvqvae_tpu_torch.utils.logging import RunLogger
 
 
 def evaluate(cfg, data, ckpt_dir: str, logger: RunLogger, batch_size: int, min_num_gen: int,
              use_fe: bool, feature_extractor_type: str, seed: int = 0,
-             fid_method: str = "schur", device="cuda") -> dict:
+             fid_method: str = "schur", device="cuda", figures: bool = True):
+    """-> (results, images): the metrics, and each image's data by file name
+    (the PCA/t-SNE points, the conditional samples; None where the figure
+    draws its inputs as they are). With ``figures`` each image is drawn and
+    written through ``logger.log_image``."""
     stage = {s: os.path.join(ckpt_dir, s) for s in ("stage1", "stage2", "stage3", "fcn")}
     has_stage3 = os.path.exists(stage["stage3"])
     have_fe = has_stage3 and use_fe
@@ -56,7 +68,17 @@ def evaluate(cfg, data, ckpt_dir: str, logger: RunLogger, batch_size: int, min_n
             data.X_train[:batch_size], data.X_test[:batch_size],
             feature_extractor_type="supervised_fcn", fcn_variables=fcn_vars, device=device)
 
-    results = {}
+    results, images = {}, {}
+
+    def image(name, draw, image_data=None):
+        images[name] = image_data
+        if figures:
+            import matplotlib.pyplot as plt
+
+            fig = draw()
+            logger.log_image(fig, name)
+            plt.close(fig)
+
     n_gen = max(len(data.X_test), min_num_gen)
     print(f"[evaluate] sampling {n_gen} unconditional trajectories...")
     _, _, x_gen = sampler.sample(n_gen, "unconditional", seed=seed)
@@ -70,9 +92,16 @@ def evaluate(cfg, data, ckpt_dir: str, logger: RunLogger, batch_size: int, min_n
     if fcn_metrics is not None:
         results["IS_mean"], results["IS_std"] = fcn_metrics.inception_score(x_gen)
 
+    image("visual_inspection.png", lambda: plots.plot_visual_inspection(data.X_test, x_gen))
+    pca = plots.pca_data([metrics.z_test, z_gen], ["Z_test", "Z_gen"], device=device)
+    image("pca_test_gen.png", lambda: plots.draw_scatter(pca, "PCA"), pca)
+    tsne = plots.tsne_data([metrics.z_test, z_gen], ["Z_test", "Z_gen"], device=device)
+    image("tsne_test_gen.png", lambda: plots.draw_scatter(tsne, "t-SNE"), tsne)
+
     if have_fe:
         x_gen_fe = sampler.enhance(x_gen)
-        results["FID with FE"] = metrics.fid_score(metrics.z_test, metrics.z_gen_fn(x_gen_fe))
+        z_gen_fe = metrics.z_gen_fn(x_gen_fe)
+        results["FID with FE"] = metrics.fid_score(metrics.z_test, z_gen_fe)
         mdd, acd, sd, kd = metrics.stat_metrics(data.X_test, x_gen_fe)
         results.update({"MDD with FE": mdd, "ACD with FE": acd,
                         "SD with FE": sd, "KD with FE": kd})
@@ -84,9 +113,21 @@ def evaluate(cfg, data, ckpt_dir: str, logger: RunLogger, batch_size: int, min_n
         if sampler.tau > 0:
             x_svq = sampler.reconstruct(data.X_test, svq_temp=sampler.tau, seed=seed)
             results["FID_svq"] = metrics.fid_score(metrics.z_test, metrics.compute_z(x_svq))
+        image("visual_inspection_fe.png", lambda: plots.plot_visual_inspection(
+            data.X_test, x_gen_fe, title="visual inspection (FE)"))
+        pca_fe = plots.pca_data([metrics.z_test, z_gen_fe], ["Z_test", "Z_gen_FE"], device=device)
+        image("pca_test_gen_fe.png", lambda: plots.draw_scatter(pca_fe, "PCA"), pca_fe)
+
+    # the per-class conditional grids (reference evaluate.py:207-270)
+    for cls in range(data.n_classes):
+        _, _, xc = sampler.sample(min(batch_size, 16), "conditional", class_index=cls,
+                                  seed=seed + cls)
+        real = data.X_test[data.y_test[:, 0] == cls][:16]
+        image(f"conditional_class_{cls}.png",
+              lambda: plots.plot_visual_inspection(real, xc, title=f"class {cls}"), xc)
 
     logger.log_metrics(results, step=0)
-    return results
+    return results, images
 
 
 def build_argparser():
@@ -109,8 +150,9 @@ def build_argparser():
     return p
 
 
-def main(argv=None):
-    args = build_argparser().parse_args(argv)
+def run(args, figures: bool = True) -> dict:
+    """The CLI's work on parsed ``args``: -> {"results", "images"};
+    ``figures=False`` computes the images' data, draws nothing."""
     cfg = load_config(args.config)
     data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
     stem = Path(args.dataset_file).stem
@@ -118,17 +160,22 @@ def main(argv=None):
                        experiment_name=cfg.logger.experiment_name,
                        run_name=f"{stem}_evaluate", mlflow_uri=cfg.logger.mlflow_uri)
     try:
-        results = evaluate(
+        results, images = evaluate(
             cfg, data, os.path.join(args.model_save_dir, stem), logger,
             batch_size=args.batch_size or cfg.evaluation.batch_size,
             min_num_gen=args.min_num_gen_samples or cfg.evaluation.min_num_gen_samples,
             use_fe=not args.no_fidelity_enhancer,
             feature_extractor_type=args.feature_extractor_type
             or cfg.evaluation.feature_extractor_type,
-            seed=args.seed, fid_method=args.fid_method, device=args.device)
+            seed=args.seed, fid_method=args.fid_method, device=args.device, figures=figures)
     finally:
         logger.close()
     print(json.dumps({k: float(v) for k, v in results.items()}, indent=2))
+    return {"results": results, "images": images}
+
+
+def main(argv=None):
+    run(build_argparser().parse_args(argv))
 
 
 if __name__ == "__main__":

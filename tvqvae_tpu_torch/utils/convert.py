@@ -63,7 +63,11 @@ def _param(path, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     """A contiguous, writable copy: float32, or bool for the ``initted`` flag."""
-    return torch.from_numpy(np.array(arr, dtype=np.bool_ if arr.dtype == np.bool_ else np.float32))
+    # order="C": a transposed kernel copied in its own order keeps permuted
+    # strides, which the modules' parameters would take over (``assign=True``)
+    # and cuDNN would then convolve with other kernels than the trained model's
+    return torch.from_numpy(np.array(arr, dtype=np.bool_ if arr.dtype == np.bool_ else np.float32,
+                                     order="C"))
 
 
 def params_to_state_dict(params: Mapping, batch_stats: Mapping = None) -> "OrderedDict[str, torch.Tensor]":

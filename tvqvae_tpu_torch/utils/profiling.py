@@ -1,14 +1,48 @@
-"""Step-time instrumentation: ``StepTimer``.
+"""Profiling and step-time instrumentation.
 
-Port of ``tvqvae_tpu/utils/profiling.py::StepTimer``. It reads the host
-clock between ticks; the device runs behind the host, so over a window the
-mean is the step rate only where something in the loop waits for the device.
+Port of ``tvqvae_tpu/utils/profiling.py``:
+
+  - ``trace(logdir)``: a context manager around ``torch.profiler`` that
+    records host and device activity and writes a Chrome trace
+    (``trace.json`` under ``logdir``, viewable in Perfetto or
+    ``chrome://tracing``), where the JAX module writes a ``jax.profiler``
+    trace for TensorBoard;
+  - ``annotate(name)``: a named span inside a trace
+    (``torch.profiler.record_function``);
+  - ``StepTimer``: streaming wall-clock step statistics (mean, p50, p90,
+    steps/s) for per-interval logging from the train loops. It reads the
+    host clock between ticks; the device runs behind the host, so over a
+    window the mean is the step rate only where something in the loop waits
+    for the device.
 """
 
+import contextlib
+import os
 import time
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Record host and, where a card is present, device activity while the
+    block runs, then write ``logdir/trace.json``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Named span inside a trace."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:
