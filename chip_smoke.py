@@ -143,6 +143,38 @@ It needs no JAX and no network. Phases, each fatal on failure:
      32 series (bit-equal, 2 VQ launches; ``launches_by_path.import``); one
      sample batch under ``profiling.trace`` with an ``annotate("sample")``
      span, the Chrome trace read back (the span, the device kernels).
+ 14e. parallel: data parallelism over ``torch.distributed``, its ranks child
+     processes on the one card (spawned; NCCL refuses two ranks on one
+     device, so two ranks talk over gloo, which reduces CUDA tensors through
+     the host). (a) two ranks, each with 16 of a global batch of 32, take
+     three published-width stage-1 steps (``Config()`` with dropout 0; SGD,
+     PyTorch's native kernels and its deterministic algorithms,
+     ``par_sgd`` and ``parallel_phase`` say why) against this process's
+     one-process run of the same steps at 32: VQ indices and
+     ``cluster_size`` equal, ``embed_avg`` within Σ(n-1)·2⁻²⁴·Σ|x| of the
+     steps' VQ inputs, the step-1 gradients per leaf within 1e-4 of its
+     scale (``check_stage1_pair``: the HF leaves by the HF L1 loss's sign
+     flips where its residual crossed 0, at most PAR_FLIPS of them), every
+     leaf after the steps within 1e-4, the ranks' BatchNorm statistics and
+     codebooks equal and their parameters' sums equal; (b) three on-the-fly
+     stage-2 steps at the published prior widths (dropout 0, masks handed
+     in) at 8 + 8 of 16: tokens equal, prior leaves within 1e-4 + 1e-4
+     relative; (c) one stage-1 step in a one-rank NCCL group against the
+     same step with no group, bit for bit; (d) the serve CLI's service with
+     ``--data_parallel`` over the card against the one without: the same
+     seeded 32-batch, bit-equal; (e) ``train_stage1`` of a small config by
+     the two ranks on the host feed (``prefetch_batches``' pinned copies),
+     straight and resumed from its step-2 snapshot (bit-equal), against
+     this process's run on the device gather (Adam's element rule,
+     ``check_adam_elements``; losses 1e-4 relative; the ranks' validation
+     against one process's of the same state, 1e-5) and its run on the host
+     feed (bit-equal); (f) ``train_stage1`` in the production recipe
+     (cuDNN, AdamW with bfloat16 moments, bfloat16 compute, fast BatchNorm)
+     at the published width by the two ranks, three steps: one state on
+     both ranks, finite, two VQ launches a step on each. (b)-(e) under
+     deterministic cuDNN. Each rank's VQ launches come back to this process
+     (``launches_by_path.parallel``); the two-rank steps' ms and each
+     rank's peak memory are printed.
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -2339,7 +2371,8 @@ def quality_phase(torch, vq_kernel, work, device="cuda"):
     """The counters set to 0, the port's quality run
     (``scripts/quality_run.py::run``) on the card at cut budgets
     (QUALITY_STEPS, validations of QUALITY_EVAL series) with ``--bf16
-    --ess``, scoring QUALITY_EVAL series: every SUMMARY key of the JAX
+    --ess``, scoring QUALITY_EVAL series by the svd FID (the JAX tool's
+    Schur form costs seconds of host time a rung): every SUMMARY key of the JAX
     tool, finite; the noise rung above the floor; FID_rec through the VQ
     kernel (2 launches per 64 series). -> its VQ launches."""
     from tvqvae_tpu_torch.scripts import quality_run
@@ -2350,7 +2383,7 @@ def quality_phase(torch, vq_kernel, work, device="cuda"):
     cut["evaluation"]["min_num_gen_samples"] = QUALITY_EVAL
     args = quality_run.build_argparser().parse_args(
         ["--workdir", os.path.join(work.root, "qr"), "--bf16", "--ess", "--n_eval",
-         str(QUALITY_EVAL), "--device", device])
+         str(QUALITY_EVAL), "--fid_method", "svd", "--device", device])
     vq_kernel.launch_count = 0
     summary, details = quality_run.run(args, overrides=cut)
     launches = vq_kernel.launch_count
@@ -3272,6 +3305,21 @@ def deterministic_cudnn(torch):
         torch.backends.cudnn.deterministic = saved
 
 
+@contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """PyTorch's deterministic implementations while inside, an op without
+    one warning: among them the encoders' ``F.pad(mode="replicate")``, whose
+    CUDA backward otherwise adds the copied edges with atomics (two runs of
+    one step then differ in the last bits)."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
 def _random_bn_statistics(torch, modules, g):
     """Trained-like BatchNorm statistics (means ~0.1 N(0, 1), variances in
     [0.5, 1.5)), so that a swapped mean and variance would show."""
@@ -3432,6 +3480,734 @@ def import_phase(torch, vq_kernel, work, device="cuda", config=None):
           f"{sum(e.get('dur', 0) for e in kernels) / 1e3:.2f} ms", flush=True)
     del disk, mem, frozen, model, t_l, t_h, fe, fcn
     torch.cuda.empty_cache()
+    return launches
+
+
+# [parallel]: two ranks on the one card, three steps each of stages 1 and 2
+PAR_WORLD, PAR_STEPS, PAR_B1, PAR_B2 = 2, 3, 32, 16
+PAR_FLIPS = 8  # the most HF L1 residual sign flips (a) accepts (the card has seen 1 of 593024)
+PAR_RUN_STEPS, PAR_RUN_B, PAR_RUN_TEST, PAR_RUN_L = 4, 8, 16, 127  # (e): small train_stage1 runs
+PAR_PROD_STEPS = 3  # (f): two-rank steps of the production recipe at the published width
+PAR_CFG = {"encoder": {"dropout": 0.0}, "decoder": {"dropout": 0.0}, "MaskGIT": {
+    f"prior_model_{b}": {"model_dropout": 0.0, "emb_dropout": 0.0, "p_unconditional": 0.0}
+    for b in ("l", "h")}}
+
+
+def par_inputs(cfg, length):
+    """The stage-1 spec, the global batches of (a) and (b), and (b)'s labels
+    and masking draws (seeded: the same in every process)."""
+    from tvqvae_tpu_torch.models.stage1 import Stage1Spec
+
+    spec = Stage1Spec.from_config(cfg, length, C)
+    rng = np.random.default_rng(21)
+    xs1 = rng.normal(size=(PAR_STEPS, PAR_B1, C, length)).astype(np.float32)
+    xs2 = rng.normal(size=(PAR_STEPS, PAR_B2, C, length)).astype(np.float32)
+    ys2 = rng.integers(0, N_CLASSES, size=(PAR_STEPS, PAR_B2, 1)).astype(np.int64)
+    noise = [{band: (rng.uniform(size=PAR_B2).astype(np.float32),
+                     rng.uniform(size=(PAR_B2, n)).astype(np.float32))
+              for band, n in (("l", spec.tokens_l), ("h", spec.tokens_h))}
+             for _ in range(PAR_STEPS)]
+    return spec, xs1, xs2, ys2, noise
+
+
+def par_tx(cfg):
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
+
+    return functools.partial(adamw, learning_rate=warmup_cosine_schedule(
+        cfg.exp_params.lr, PAR_STEPS, cfg.exp_params.linear_warmup_rate), weight_decay=0.01)
+
+
+def par_sgd(cfg):
+    """Plain SGD at the config's learning rate: (a)'s optimizer. Adam's first
+    step is lr·sign(g), so at 181 M parameters every element whose gradient
+    is 0 up to rounding moves ±lr at random between any two float32
+    computations, and the next steps' near-tie VQ indices with them; SGD
+    moves each element by lr·g, so three steps compare what the reduction
+    decides, the gradient."""
+    import torch
+
+    def tx(params):
+        opt = torch.optim.SGD(params, lr=cfg.exp_params.lr)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
+
+    return tx
+
+
+def par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs, rows, device, timed=False, tx=None):
+    """``len(xs)`` stage-1 steps from a copy of ``model0`` on ``rows`` of each
+    global batch, with ``tx`` (default ``par_tx``) -> {"final": the state as
+    ``stage1_from_jax`` lays it out, on ``device``; "grads": the step-1
+    gradients (averaged over the ranks inside a group), on ``device``;
+    "indices": per step (LF, HF) on the host; "signs": the signs of the HF
+    L1 loss's residual x_h - xhat_h at step 1, on the host; "loss"; "ms" of
+    the steps after the first (CUDA events) with ``timed``}."""
+    import copy
+
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+
+    state = create_stage1_state(copy.deepcopy(model0), vq_l0, vq_h0, tx or par_tx(cfg))
+    seen, signs = [], []
+
+    def hook(m, i, o):
+        seen.append((o.vq_l.indices.cpu(), o.vq_h.indices.cpu()))
+        if not signs:
+            signs.append(torch.sign(o.x_h - o.xhat_h).detach().to(torch.int8).cpu())
+
+    state.model.register_forward_hook(hook)
+    step = make_stage1_train_step()
+    events, losses, grads = [], [], None
+    for x in xs:
+        _, m = step(state, torch.from_numpy(np.ascontiguousarray(x[rows])).to(device))
+        losses.append(m["loss"])
+        if grads is None:
+            grads = {k: p.grad.detach().clone() for k, p in state.model.named_parameters()}
+        if timed:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    final = dict(state.model.state_dict())
+    for band, cb in (("vq_l", state.vq_l), ("vq_h", state.vq_h)):
+        for f in ("embed", "embed_avg", "cluster_size", "initted"):
+            final[f"{band}.{f}"] = getattr(cb, f)
+    out = {"final": final, "grads": grads, "indices": seen, "signs": signs[0],
+           "loss": [float(v) for v in losses]}
+    if timed:
+        out["ms"] = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    return out
+
+
+def par_stage2(torch, cfg, frozen, xs, ys, noise, rows, device):
+    """``len(xs)`` on-the-fly stage-2 steps from seeded priors over
+    ``frozen`` on ``rows`` of each global batch, with the masking draws
+    handed in -> {"tokens": per step (LF, HF) on the host, "final": both
+    priors' state dicts on the host, "loss"}."""
+    from tvqvae_tpu_torch.models.maskgit import build_transformers
+    from tvqvae_tpu_torch.train import stage2 as st2
+
+    t_l, t_h = st2.init_stage2(*build_transformers(cfg, frozen.model.spec, N_CLASSES),
+                               torch.Generator().manual_seed(1), device)
+    state = st2.create_stage2_state(t_l, t_h, par_tx(cfg))
+    step = st2.make_stage2_train_step(frozen)
+    tokens, losses, real = [], [], st2.encode_tokens
+
+    def recording(fz, x, band, **kw):
+        s = real(fz, x, band, **kw)
+        tokens.append(s.cpu())
+        return s
+
+    st2.encode_tokens = recording
+    try:
+        for x, y, nz in zip(xs, ys, noise):
+            _, m = step(state, torch.from_numpy(np.ascontiguousarray(x[rows])).to(device),
+                        torch.from_numpy(y[rows]).to(device),
+                        noise={b: tuple(torch.from_numpy(np.ascontiguousarray(d[rows])).to(device)
+                                        for d in ds) for b, ds in nz.items()})
+            losses.append(float(m["loss"]))
+    finally:
+        st2.encode_tokens = real
+    return {"tokens": list(zip(tokens[0::2], tokens[1::2])), "loss": losses,
+            "final": {b: {k: v.detach().cpu() for k, v in t.state_dict().items()}
+                      for b, t in (("l", t_l), ("h", t_h))}}
+
+
+def par_final(state) -> dict:
+    """A stage-1 train state on the host, laid out as ``stage1_from_jax``
+    lays it out (the model's state dict, then the codebooks' fields)."""
+    final = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    for band, cb in (("vq_l", state.vq_l), ("vq_h", state.vq_h)):
+        for f in ("embed", "embed_avg", "cluster_size", "initted"):
+            final[f"{band}.{f}"] = getattr(cb, f).detach().cpu().clone()
+    return final
+
+
+class ParRecorder:
+    """The logger of (e) and (f)'s runs: each step's loss (read after the
+    run), a CUDA event after each step on the card, the validations."""
+
+    def __init__(self, torch, on_card: bool):
+        self.torch, self.on_card = torch, on_card
+        self.losses, self.events, self.val = [], [], []
+
+    def log_metrics(self, metrics, step):
+        if "train/loss" not in metrics:
+            self.val.append((step, {k: float(v) for k, v in metrics.items()}))
+            return
+        self.losses.append(metrics["train/loss"])
+        if self.on_card:
+            self.events.append(self.torch.cuda.Event(enable_timing=True))
+            self.events[-1].record()
+
+
+def par_run_cfg():
+    """(e)'s config: the small one, dropout 0, a global batch of PAR_RUN_B,
+    validating and snapshotting every 2 steps."""
+    from tvqvae_tpu_torch.config import Config
+
+    return Config.from_dict({**SMALL_CFG, "encoder": {**SMALL_CFG["encoder"], "dropout": 0.0},
+                             "decoder": {**SMALL_CFG["decoder"], "dropout": 0.0},
+                             "dataset": {"batch_sizes": {"stage1": PAR_RUN_B}},
+                             "trainer_params": {"val_check_interval": {"stage1": 2}}})
+
+
+def par_run_data():
+    """(e)'s seeded splits: 32 train and PAR_RUN_TEST test series."""
+    from tvqvae_tpu_torch.data.dataset import DatasetSplits, make_synthetic_trajectories
+
+    X, y = make_synthetic_trajectories(n=32 + PAR_RUN_TEST, channels=C, length=PAR_RUN_L,
+                                       n_classes=N_CLASSES, seed=5)
+    return DatasetSplits(X_train=X[:32], y_train=y[:32, None], X_test=X[32:],
+                         y_test=y[32:, None], scaler=None, n_classes=N_CLASSES)
+
+
+def par_run(torch, save_path, device, data_on_device=True) -> dict:
+    """(e): ``train_stage1`` of ``par_run_cfg`` over ``par_run_data`` for
+    PAR_RUN_STEPS steps, writing to ``save_path`` -> {"final": its state on
+    the host, "loss": the logged losses, "val": the validations} (the
+    primary's log; another rank logs nothing)."""
+    from tvqvae_tpu_torch.train.runner import train_stage1
+
+    rec = ParRecorder(torch, device == "cuda")
+    state = train_stage1(par_run_cfg(), par_run_data(), max_steps=PAR_RUN_STEPS, seed=2,
+                         logger=rec, device=device, log_interval=1, save_path=save_path,
+                         data_on_device=data_on_device)
+    return {"final": par_final(state), "loss": [float(v) for v in rec.losses], "val": rec.val}
+
+
+def par_production(torch, cfg_dict, length, device) -> dict:
+    """(f): ``train_stage1`` in the production recipe (``PRODUCTION``: cuDNN,
+    AdamW with bfloat16 first moments, bfloat16 compute, fast BatchNorm) at
+    ``cfg_dict``'s widths with its dropout, PAR_PROD_STEPS steps at a global
+    batch of PAR_B1 on seeded series, no validation -> {"sums": the state's
+    leaf sums, "finite", "loss", "ms": steps 2 on (CUDA events, the
+    primary's), "peak_gib"}."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data.dataset import DatasetSplits
+    from tvqvae_tpu_torch.train.runner import train_stage1
+
+    prod = json.loads(json.dumps(cfg_dict))
+    for part in ("encoder", "decoder"):
+        prod.get(part, {}).pop("dropout", None)
+    prod["dataset"] = {"batch_sizes": {"stage1": PAR_B1}}
+    X = np.random.default_rng(22).normal(size=(2 * PAR_B1, C, length)).astype(np.float32)
+    data = DatasetSplits(X_train=X, y_train=np.zeros((len(X), 1), np.int64),
+                         X_test=X[:0], y_test=np.zeros((0, 1), np.int64), scaler=None,
+                         n_classes=N_CLASSES)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rec = ParRecorder(torch, on_card)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        state = train_stage1(Config.from_dict(prod), data, max_steps=PAR_PROD_STEPS, logger=rec,
+                             device=device, log_interval=1, **PRODUCTION)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    final = par_final(state)
+    ms = (rec.events[0].elapsed_time(rec.events[-1]) / (len(rec.events) - 1)
+          if rec.events else None)
+    return {"sums": par_leaf_sums(final), "loss": [float(v) for v in rec.losses], "ms": ms,
+            "finite": all(bool(torch.isfinite(v).all()) for v in final.values()
+                          if v.is_floating_point()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0}
+
+
+def check_adam_elements(label, ref, dut, cancelled, noise) -> dict:
+    """Hold ``dut`` to ``ref``, two runs of the same Adam steps computed two
+    ways (``par_final``'s layout): an element whose gradient is 0 up to
+    rounding takes Adam's sign step either way, so every element within
+    2e-4 + ``noise`` (2·Σlr) and all but 1e-4 of the elements outside the
+    ``cancelled`` biases and the running means within 2e-4 + 2e-4 relative;
+    codebooks within 1e-4 of 1 + |value|, counts and flags equal. -> the
+    worst errors."""
+    worst = {"leaf": 0.0, "codebook": 0.0, "beyond share": 0.0}
+    beyond = n_el = 0
+    for k, r in ref.items():
+        a = dut[k]
+        if k.endswith(("num_batches_tracked", "initted", "cluster_size")):
+            check(torch_equal(a, r), f"{label}: {k} differs")
+            continue
+        a, r = a.double(), r.double()
+        err = (a - r).abs()
+        if k.startswith(("vq_l.", "vq_h.")):
+            worst["codebook"] = max(worst["codebook"], float((err / (1.0 + r.abs())).max()))
+            continue
+        check(float(err.max()) <= 2e-4 + noise, f"{label}: {k} off by {float(err.max())}")
+        worst["leaf"] = max(worst["leaf"], float(err.max()))
+        if k not in cancelled and not k.endswith("running_mean"):
+            beyond += int((err > 2e-4 + 2e-4 * r.abs()).sum())
+            n_el += err.numel()
+    check(worst["codebook"] <= 1e-4, f"{label}: codebooks off by {worst['codebook']}")
+    worst["beyond share"] = beyond / max(n_el, 1)
+    check(beyond <= 1e-4 * n_el, f"{label}: {beyond} of {n_el} elements beyond 2e-4")
+    return worst
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+HF_LEAVES = ("encoder_h.", "decoder_h.", "head_h.")  # what the HF band's L1 loss feeds
+
+
+def check_stage1_pair(torch, label, ref, got, cancelled, flip_share, bound, vq_eps):
+    """Hold a stage-1 run ``got`` (``par_stage1``'s, with SGD) to ``ref``, the
+    same steps computed another way. The step-1 gradients per leaf within
+    1e-4 of the leaf's max |grad| (a BatchNorm-cancelled bias, whose gradient
+    is 0 up to rounding in both, within 1e-4 of its conv weight's), but for
+    one case: the HF band's loss is an L1, whose gradient flips at a
+    residual of 0. Where the residual changed sign between the two runs (k
+    of n elements, residuals within rounding of 0), each flip changes one of
+    the n terms ±1/n whose sum the HF gradients back-propagate, ~2/sqrt(n)
+    of their norm; the HF leaves are then held to 4·k/sqrt(n)
+    (``flip_share`` = k/sqrt(n)) in relative L2 norm. After the steps every leaf
+    within 1e-4 + 1e-4 relative. Codebooks: ``cluster_size`` (the counts)
+    equal, ``embed_avg`` within ``bound`` per column ((n-1)·2⁻²⁴·Σ|x| summed
+    over the steps, plus 2⁻²² relative for the EMA's own rounding), and
+    ``embed`` = ``embed_avg`` / the smoothed counts (the same in both,
+    Laplace ``vq_eps``) within that bound over the smoothed counts (plus
+    2⁻²¹ relative). -> the worst errors."""
+    worst = {"grad": 0.0, "HF grad L2": 0.0, "cancelled grad": 0.0, "leaf": 0.0,
+             "codebook bound share": 0.0}
+    for k, g in got["grads"].items():
+        r = ref["grads"][k].to(g.device)
+        if k in cancelled:
+            scale = float(ref["grads"][cancelled[k]].abs().max())
+            e = max(float(r.abs().max()), float(g.abs().max())) / scale
+            check(e <= 1e-4, f"{label}: cancelled {k} gradient {e:.3g} of its weight's")
+            worst["cancelled grad"] = max(worst["cancelled grad"], e)
+            continue
+        if flip_share and k.startswith(HF_LEAVES):
+            e = float((g - r).double().norm() / r.double().norm())
+            check(e <= 4 * flip_share, f"{label}: {k} step-1 gradient off by {e:.3g} in L2")
+            worst["HF grad L2"] = max(worst["HF grad L2"], e)
+            continue
+        e = float((g - r).abs().max()) / float(r.abs().max())
+        check(e <= 1e-4, f"{label}: {k} step-1 gradient off by {e:.3g} of its scale")
+        worst["grad"] = max(worst["grad"], e)
+    for k, r in ref["final"].items():
+        a = got["final"][k]
+        r = r.to(a.device)
+        if k.endswith(("num_batches_tracked", "initted")):
+            check(bool((a == r).all()), f"{label}: {k} differs")
+            continue
+        a, r = a.double(), r.double()
+        err = (a - r).abs()
+        if not k.startswith(("vq_l.", "vq_h.")):
+            check(bool((err <= 1e-4 + 1e-4 * r.abs()).all()),
+                  f"{label}: {k} off by {float(err.max())}")
+            worst["leaf"] = max(worst["leaf"], float(err.max()))
+        elif k.endswith("cluster_size"):
+            check(torch.equal(a, r), f"{label}: {k} (the counts) differs")
+        else:
+            avg = ref["final"][k[:5] + "embed_avg"].to(a.device).double()
+            b = bound[k[:4]].to(a.device).double()[None, :] + 2.0 ** -22 * avg.abs()
+            if k.endswith(".embed"):
+                cs = ref["final"][k[:5] + "cluster_size"].to(a.device).double()
+                n = cs.sum()
+                smoothed = (cs + vq_eps) / (n + cs.numel() * vq_eps) * n
+                b = b / smoothed[:, None] + 2.0 ** -21 * r.abs()
+            check(bool((err <= b).all()), f"{label}: {k} beyond its sum bound")
+            worst["codebook bound share"] = max(worst["codebook bound share"],
+                                                float((err / b).max()))
+    return worst
+
+
+def par_leaf_sums(final) -> dict:
+    """{leaf: (Σ v, Σ |v|) in float64}, to hold two ranks' states equal
+    without moving them."""
+    return {k: (float(v.double().sum()), float(v.double().abs().sum())) for k, v in final.items()}
+
+
+def parallel_rank(rank, world, ports, out_dir, cfg_dict, length, device):
+    """One rank of ``[parallel]`` (a spawned child on the card): (c)'s
+    reference step with no process group (rank 0), then a gloo group of
+    ``world`` ranks for (a) and (b), then, on rank 0, (a)'s check against
+    the parent's one-process run (``out_dir/ref.pt``, read where the state
+    lies) and a one-rank NCCL group (gloo on the CPU) for (c); its results,
+    VQ launches by part and peak memory to ``out_dir/rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models.stage1 import init_stage1
+    from tvqvae_tpu_torch.ops import vq_kernel
+
+    torch.set_num_threads(2)
+    on_card = device == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        vq_kernel.build()
+    cfg = Config.from_dict(cfg_dict)
+    spec, xs1, xs2, ys2, noise = par_inputs(cfg, length)
+    model0, vq_l0, vq_h0 = init_stage1(spec, torch.Generator().manual_seed(0), device)
+    cancelled = biases_cancelled_by_batchnorm(model0)
+    with deterministic_cudnn(torch):  # (b), (c) and (e): (c) and (e) compare bit for bit
+        res = parallel_rank_work(torch, dist, rank, world, ports, out_dir, cfg, spec, xs1, xs2,
+                                 ys2, noise, model0, vq_l0, vq_h0, cancelled, device,
+                                 cfg_dict, length)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt.tmp"))
+    os.replace(os.path.join(out_dir, f"rank{rank}.pt.tmp"), os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def parallel_rank_work(torch, dist, rank, world, ports, out_dir, cfg, spec, xs1, xs2, ys2, noise,
+                       model0, vq_l0, vq_h0, cancelled, device, cfg_dict, length):
+    """``parallel_rank``'s steps and checks, under deterministic cuDNN."""
+    import copy
+
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1
+    from tvqvae_tpu_torch.ops import vq_kernel
+    from tvqvae_tpu_torch.parallel import mesh
+
+    on_card = device == "cuda"
+    res, launches = {}, {}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ports[0]}", rank=rank,
+                            world_size=world)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    rows1, rows2 = mesh.shard_bounds(PAR_B1), mesh.shard_bounds(PAR_B2)
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    # (a) in native kernels and deterministic algorithms: see parallel_phase
+    with torch.backends.cudnn.flags(enabled=False), deterministic_algorithms(torch):
+        a = par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs1, rows1, device, timed=on_card,
+                       tx=par_sgd(cfg))
+    res["a_seconds"] = time.perf_counter() - t0
+    launches["a"] = vq_kernel.launch_count
+    signs = torch.cat(mesh.all_gather_object(a["signs"]))  # the global batch's HF residual signs
+    res["a"] = {"indices": a["indices"], "loss": a["loss"], "ms": a.get("ms"),
+                "hf_elements": signs.numel(),
+                "sums": par_leaf_sums(a["final"]),
+                "side": {k: v.cpu() for k, v in a["final"].items()
+                         if k.startswith(("vq_l.", "vq_h.")) or "running_" in k}}
+    frozen = FrozenStage1(copy.deepcopy(model0).eval().requires_grad_(False), vq_l0, vq_h0)
+    vq_kernel.launch_count = 0
+    res["b"] = par_stage2(torch, cfg, frozen, xs2, ys2, noise, rows2, device)
+    launches["b"] = vq_kernel.launch_count
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    # (e): the runner on the host feed, a straight run, then its step-2
+    # snapshot resumed (the stage checkpoint removed): the same state
+    path = os.path.join(out_dir, "run", "stage1")
+    vq_kernel.launch_count = 0
+    with deterministic_algorithms(torch):
+        full = par_run(torch, path, device)
+        mesh.barrier("par-run")
+        if rank == 0:
+            os.remove(path)
+            os.remove(path + ".meta.json")
+        mesh.barrier("par-resume")
+        resumed = par_run(torch, path, device)
+    launches["e"] = vq_kernel.launch_count
+    for k, v in full["final"].items():
+        check(torch.equal(v, resumed["final"][k]),
+              f"[parallel] (e) rank {rank}: {k} after the resume differs from the straight run")
+    check(resumed["loss"] == full["loss"][PAR_RUN_STEPS // 2:],
+          f"[parallel] (e) resumed losses {resumed['loss']} against {full['loss']}")
+    res["e"] = {"final": full["final"], "sums": par_leaf_sums(full["final"]),
+                "loss": full["loss"], "val": full["val"]}
+    # (f): the production recipe's two-rank steps at the published width
+    vq_kernel.launch_count = 0
+    res["f"] = par_production(torch, cfg_dict, length, device)
+    launches["f"] = vq_kernel.launch_count
+    dist.destroy_process_group()
+    del frozen
+    if rank == 0:
+        ref_path = os.path.join(out_dir, "ref.pt")
+        t_wait = time.perf_counter()
+        while not os.path.exists(ref_path):
+            check(time.perf_counter() - t_wait < 300, "[parallel] no one-process reference")
+            time.sleep(0.1)
+        ref = torch.load(ref_path, map_location=device, weights_only=True)
+        flips = int((signs != ref["signs"].cpu()).sum())
+        # each flip widens the HF leaves' bound: a faulty reduction must not widen its own
+        check(flips <= PAR_FLIPS, f"[parallel] the HF L1 residual changed sign at {flips} of "
+                                  f"{signs.numel()} elements, more than {PAR_FLIPS}")
+        res["a_check"] = check_stage1_pair(torch, "[parallel] two-rank steps", ref, a, cancelled,
+                                           flips / signs.numel() ** 0.5, ref["bound"],
+                                           spec.vq_l.eps)
+        res["a_check"]["HF L1 residual sign flips"] = flips
+        print(f"[parallel] rank 0, (a) against one process: {res['a_check']}", flush=True)
+        del ref, a
+        vq_kernel.launch_count = 0  # (c): one step with no process group, then in one of NCCL
+        with deterministic_algorithms(torch):
+            ref_c = par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs1[:1], slice(None), device)
+            launches["c_ref"] = vq_kernel.launch_count
+            dist.init_process_group("nccl" if on_card else "gloo",
+                                    init_method=f"tcp://127.0.0.1:{ports[1]}", rank=0,
+                                    world_size=1)
+            vq_kernel.launch_count = 0
+            got_c = par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs1[:1], slice(None), device)
+            launches["c"] = vq_kernel.launch_count
+            dist.destroy_process_group()
+        # a one-rank group's reductions are identities: the same step, bit for bit
+        for band in (0, 1):
+            check(torch.equal(ref_c["indices"][0][band], got_c["indices"][0][band]),
+                  f"one-rank NCCL step: band {band} indices differ from the step with no group")
+        for part in ("grads", "final"):
+            for k, v in ref_c[part].items():
+                check(torch.equal(v, got_c[part][k]),
+                      f"one-rank NCCL step: {part} {k} differs from the step with no group")
+        res["c"] = {"leaves": len(ref_c["final"]), "loss": (ref_c["loss"][0], got_c["loss"][0])}
+    res["launches"] = launches
+    return res
+
+
+def _free_ports(n: int) -> list:
+    """``n`` distinct free localhost ports (the sockets held until all are
+    picked)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, length=None):
+    """``[parallel]``: (a)-(c) in ``PAR_WORLD`` spawned ranks while this
+    process runs their one-process references and (d); then every check,
+    the numbers printed beside ``smi`` (the card's name and power limit).
+    ``cfg_dict`` and ``length`` (default ``PAR_CFG`` and ``L``) size a
+    rehearsal on the CPU. -> the VQ kernel launches of the phase (every
+    process's)."""
+    import copy
+
+    import torch.multiprocessing as mp
+
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.models import vq as vq_module
+    from tvqvae_tpu_torch.models.maskgit import FrozenStage1
+    from tvqvae_tpu_torch.models.stage1 import Stage1Model, Stage1Spec, init_stage1
+    from tvqvae_tpu_torch.scripts import serve
+    from tvqvae_tpu_torch.train import runner
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state
+    from tvqvae_tpu_torch.utils.schedule import warmup_cosine_schedule
+
+    t_start = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="parallel_", dir=work.root)
+    ctx = mp.get_context("spawn")
+    ports = _free_ports(2)
+    cfg_dict = PAR_CFG if cfg_dict is None else cfg_dict
+    length = L if length is None else length
+    procs = [ctx.Process(target=parallel_rank, daemon=True,
+                         args=(r, PAR_WORLD, ports, out_dir, cfg_dict, length, device))
+             for r in range(PAR_WORLD)]
+    for proc in procs:
+        proc.start()
+    try:
+        # the one-process references of (a) and (b), counted, while the ranks start
+        cfg = Config.from_dict(cfg_dict)
+        spec, xs1, xs2, ys2, noise = par_inputs(cfg, length)
+        model0, vq_l0, vq_h0 = init_stage1(spec, torch.Generator().manual_seed(0), device)
+        vq_kernel.launch_count = 0
+        vq_in = []  # (rows, Σ|x| per column) of each VQ call of (a)'s reference
+
+        def sizing(flat, embed):
+            vq_in.append((flat.shape[0], flat.detach().abs().sum(0).double().cpu()))
+            return vq_kernel.nearest_codes_stats(flat, embed)
+
+        vq_module.nearest_codes_stats = sizing
+        try:
+            # (a) compares native kernels: cuDNN picks its algorithms by batch
+            # size, and an FFT convolution at 32 rows against another at 16
+            # moved the HF decoder's output by more than rounding; and
+            # deterministic algorithms, so that the only differences left are
+            # the two ways of reducing the batch
+            with torch.backends.cudnn.flags(enabled=False), deterministic_algorithms(torch):
+                ref_a = par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs1, slice(None), device,
+                                   tx=par_sgd(cfg))
+        finally:
+            vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats
+        # embed_avg's bound per column: (n-1)·2⁻²⁴·Σ|x| of each step's VQ input, summed
+        bound = {band: sum((n - 1) * 2.0 ** -24 * s_ for n, s_ in vq_in[i::2])
+                 for i, band in enumerate(("vq_l", "vq_h"))}
+        # rank 0 checks its state against this, where its state lies
+        torch.save({"final": {k: v.cpu() for k, v in ref_a.pop("final").items()},
+                    "grads": {k: v.cpu() for k, v in ref_a.pop("grads").items()},
+                    "signs": ref_a["signs"], "bound": bound}, os.path.join(out_dir, "ref.pt.tmp"))
+        os.replace(os.path.join(out_dir, "ref.pt.tmp"), os.path.join(out_dir, "ref.pt"))
+        frozen = FrozenStage1(copy.deepcopy(model0).eval().requires_grad_(False), vq_l0, vq_h0)
+        with deterministic_cudnn(torch):
+            ref_b = par_stage2(torch, cfg, frozen, xs2, ys2, noise, slice(None), device)
+        parent_launches = vq_kernel.launch_count
+        del frozen, model0
+
+        # (d): the serve CLI's service with and without --data_parallel
+        parser = serve.build_argparser()
+        base = ["--dataset_file", work.dataset, "--model_save_dir", work.models, "--device",
+                device, "--no_warmup"]
+        series = {}
+        with deterministic_cudnn(torch):
+            for flag in ((), ("--data_parallel",)):
+                svc = serve.build_service(parser.parse_args(base + list(flag)), parser)
+                series[flag] = (svc.sampler.sample(B, seed=3), len(svc.sampler.devices))
+                del svc
+        for (a_, b_) in zip(series[()][0], series[("--data_parallel",)][0]):
+            check(np.array_equal(a_, b_), "serve --data_parallel differs from the one-device "
+                                          "service")
+        n_dev = series[("--data_parallel",)][1]
+        check(n_dev == (torch.cuda.device_count() if device == "cuda" else 1),
+              f"--data_parallel over {n_dev} devices")
+
+        # (e)'s one-process runs: the device gather, then the host feed
+        vq_kernel.launch_count = 0
+        with deterministic_cudnn(torch), deterministic_algorithms(torch):
+            one = par_run(torch, os.path.join(out_dir, "one", "stage1"), device)
+            host = par_run(torch, os.path.join(out_dir, "host", "stage1"), device,
+                           data_on_device=False)
+        run_launches = vq_kernel.launch_count
+        for k, v in one["final"].items():
+            check(torch.equal(v, host["final"][k]),
+                  f"[parallel] (e) one process on the host feed: {k} differs from the device "
+                  f"gather's run")
+        check(host["loss"] == one["loss"] and host["val"] == one["val"],
+              "[parallel] (e) one process on the host feed: the logs differ")
+
+        for proc in procs:
+            proc.join(timeout=300)
+        for r, proc in enumerate(procs):
+            check(proc.exitcode == 0, f"[parallel] rank {r} exited {proc.exitcode}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(PAR_WORLD)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (a): indices, the ranks equal (rank 0 held its state to this process's)
+    for t in range(PAR_STEPS):
+        for band in (0, 1):
+            got = torch.cat([rk["a"]["indices"][t][band] for rk in ranks])
+            check(torch.equal(got, ref_a["indices"][t][band]),
+                  f"[parallel] two-rank step {t + 1}: band {band} indices differ")
+    loss_two = [float(np.mean([rk["a"]["loss"][t] for rk in ranks])) for t in range(PAR_STEPS)]
+    loss_gap = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(loss_two, ref_a["loss"]))
+    check(loss_gap <= 1e-4, f"[parallel] two-rank losses {loss_two} vs {ref_a['loss']}")
+    side = [rk["a"]["side"] for rk in ranks]
+    for k, v in side[0].items():
+        check(torch.equal(v, side[1][k]), f"[parallel] ranks' {k} differ")
+    check(ranks[0]["a"]["sums"] == ranks[1]["a"]["sums"], "[parallel] ranks' parameters differ")
+    n_bn = sum(k.endswith("running_mean") for k in side[0])
+
+    # (b): tokens and the priors
+    for t in range(PAR_STEPS):
+        for band in (0, 1):
+            got = torch.cat([rk["b"]["tokens"][t][band] for rk in ranks])
+            check(torch.equal(got, ref_b["tokens"][t][band]),
+                  f"[parallel] stage-2 step {t + 1}: band {band} tokens differ")
+    prior_err = 0.0
+    for b_ in ("l", "h"):
+        for k, v in ref_b["final"][b_].items():
+            for rk in ranks:
+                got = rk["b"]["final"][b_][k]
+                if k.endswith("num_batches_tracked"):
+                    check(torch.equal(got, v), f"[parallel] prior {b_}.{k} differs")
+                    continue
+                e = (got - v).abs()
+                check(bool((e <= 1e-4 + 1e-4 * v.abs()).all()),
+                      f"[parallel] prior {b_}.{k} off by {float(e.max())}")
+                prior_err = max(prior_err, float(e.max()))
+
+    # (e): the ranks' run against one process's, Adam's element rule; their
+    # last validation (each rank its share of the test split's batches)
+    # within 1e-5 relative of one process's validation of the same state
+    e0 = ranks[0]["e"]
+    check(e0["sums"] == ranks[1]["e"]["sums"], "[parallel] (e) the ranks' states differ")
+    run_cfg, run_spec = par_run_cfg(), Stage1Spec.from_config(par_run_cfg(), PAR_RUN_L, C)
+    run_noise = 2 * sum(warmup_cosine_schedule(run_cfg.exp_params.lr, PAR_RUN_STEPS)(t)
+                        for t in range(PAR_RUN_STEPS))
+    run_worst = check_adam_elements(
+        "[parallel] (e) two ranks against one process", one["final"], e0["final"],
+        biases_cancelled_by_batchnorm(Stage1Model(run_spec)), run_noise)
+    run_loss = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(e0["loss"], one["loss"]))
+    check(len(e0["loss"]) == PAR_RUN_STEPS and run_loss <= 1e-4,
+          f"[parallel] (e) two-rank losses {e0['loss']} against one process's {one['loss']}")
+    check([st for st, _ in e0["val"]] == [st for st, _ in one["val"]] == [2, 4],
+          f"[parallel] (e) validations at {[st for st, _ in e0['val']]}")
+    fz = FrozenStage1.from_state_dict(run_spec, {k: v.clone() for k, v in e0["final"].items()},
+                                      device)
+    val = runner._make_eval(create_stage1_state(fz.model, fz.vq_l, fz.vq_h, par_sgd(run_cfg)),
+                            par_run_data().X_test, PAR_RUN_B, torch.device(device))(PAR_RUN_STEPS)
+    run_val = max(abs(e0["val"][-1][1][f"val/{k}"] - v) / abs(v) for k, v in val.items())
+    check(run_val <= 1e-5, f"[parallel] (e) the ranks' validation off by {run_val} relative")
+    # (f): the production recipe's ranks hold one state, finite
+    f0 = ranks[0]["f"]
+    check(f0["sums"] == ranks[1]["f"]["sums"], "[parallel] (f) the ranks' states differ")
+    check(f0["finite"] and ranks[1]["f"]["finite"] and all(np.isfinite(f0["loss"])),
+          f"[parallel] (f) non-finite state or losses {f0['loss']}")
+
+    launches = (parent_launches + run_launches
+                + sum(sum(rk["launches"].values()) for rk in ranks))
+    nb = PAR_RUN_TEST // PAR_RUN_B  # validation batches, split over the ranks
+    run_rank = (2 * (PAR_RUN_STEPS + PAR_RUN_STEPS // 2)  # straight, then resumed at step 2
+                + 2 * (PAR_RUN_STEPS // 2 + 1) * nb // PAR_WORLD)  # 2 + 1 validations
+    for rk in ranks:
+        check(device != "cuda" or (rk["launches"]["e"], rk["launches"]["f"])
+              == (run_rank, 2 * PAR_PROD_STEPS),
+              f"[parallel] a rank's (e) and (f) launches {rk['launches']}")
+    expected = (2 * PAR_STEPS * 2 * (PAR_WORLD + 1)  # (a) and (b): each rank, the reference
+                + 2 * 2  # (c): the step with no group and the NCCL step
+                + PAR_WORLD * run_rank  # (e): the ranks
+                + 2 * (2 * PAR_RUN_STEPS + 2 * (PAR_RUN_STEPS // 2) * nb)  # (e): one process, twice
+                + PAR_WORLD * 2 * PAR_PROD_STEPS)  # (f)
+    # on the CPU (a rehearsal) the plain twin runs and counts nothing
+    check(launches == expected or device != "cuda",
+          f"[parallel] VQ launches {launches}, expected {expected}")
+    c_, wa = ranks[0]["c"], ranks[0]["a_check"]
+    hf = (f", the HF leaves within {wa['HF grad L2']:.3g} in L2 (bound "
+          f"{4 * wa['HF L1 residual sign flips'] / ranks[0]['a']['hf_elements'] ** 0.5:.3g})"
+          if wa["HF L1 residual sign flips"] else "")
+    print(f"[parallel] {smi} | (a) {PAR_WORLD} gloo ranks on cuda:0, {PAR_B1 // PAR_WORLD} of "
+          f"{PAR_B1} rows each, {PAR_STEPS} published-width stage-1 steps (SGD, native kernels, "
+          f"deterministic algorithms) "
+          f"against one process at {PAR_B1}: indices equal; cluster_size equal; embed_avg and "
+          f"embed at most {wa['codebook bound share']:.3g} of their sum bounds; step-1 "
+          f"gradients within {wa['grad']:.3g} of each leaf's scale{hf} (the HF L1 residual "
+          f"changed sign at {wa['HF L1 residual sign flips']} of "
+          f"{ranks[0]['a']['hf_elements']} elements; cancelled biases "
+          f"{wa['cancelled grad']:.3g} of their weight's); leaves after the steps within "
+          f"{wa['leaf']:.3g}; losses within {loss_gap:.3g} relative; the ranks' {n_bn} "
+          f"BatchNorm statistics and codebooks equal, parameter sums equal", flush=True)
+    print(f"[parallel] {smi} | (b) {PAR_STEPS} on-the-fly stage-2 steps at the published prior "
+          f"widths, {PAR_B2 // PAR_WORLD} + {PAR_B2 // PAR_WORLD} of {PAR_B2}, masks handed in: "
+          f"tokens equal, prior leaves within {prior_err:.3g} of one process's; (c) one-rank "
+          f"NCCL group: one step bit-equal to the step with no group (indices, step-1 "
+          f"gradients, {c_['leaves']} leaves and codebooks; loss {c_['loss'][1]:.6f}; "
+          f"deterministic cuDNN and algorithms); (d) serve "
+          f"--data_parallel over {n_dev} device(s): the seeded {B}-batch bit-equal to the "
+          f"one-device service (deterministic cuDNN)", flush=True)
+    print(f"[parallel] {smi} | (e) train_stage1 at the small config, {PAR_RUN_STEPS} steps of "
+          f"{PAR_RUN_B // PAR_WORLD} + {PAR_RUN_B // PAR_WORLD} on the host feed: resumed from "
+          f"the step-2 snapshot bit-equal to the straight run on both ranks; against one "
+          f"process on the device gather: leaves within {run_worst['leaf']:.3g} (Adam's rule, "
+          f"{run_worst['beyond share']:.3g} of the elements beyond 2e-4), codebooks "
+          f"{run_worst['codebook']:.3g} of 1 + |value|, losses {run_loss:.3g} relative, the "
+          f"ranks' validation {run_val:.3g} relative of one process's of the same state; one "
+          f"process on the host feed bit-equal to the device gather (deterministic cuDNN and "
+          f"algorithms); (f) the production recipe (cuDNN, AdamW, bfloat16 moments and "
+          f"compute, fast BatchNorm), {PAR_PROD_STEPS} published-width steps of "
+          f"{PAR_B1 // PAR_WORLD} + {PAR_B1 // PAR_WORLD}: one state on both ranks, finite, "
+          f"losses {[round(v, 4) for v in f0['loss']]}", flush=True)
+    print(f"[parallel] {smi} | two-rank stage-1 step, production recipe "
+          f"{f0['ms'] or 0.0:.1f} ms; (a)'s (native kernels, SGD, deterministic algorithms) "
+          f"{ranks[0]['a']['ms'] or 0.0:.1f} ms (CUDA events, steps 2-{PAR_STEPS} on rank 0, "
+          f"{ranks[0]['a_seconds']:.1f} s for (a)'s {PAR_STEPS}; a gloo all-reduce of ~726 MB of "
+          f"float32 gradients through the host a step, two ranks sharing one card: not a "
+          f"scaling rate); peak memory by rank {[round(rk['peak_gib'], 2) for rk in ranks]} "
+          f"GiB in (a)-(b), {[round(rk['f']['peak_gib'], 2) for rk in ranks]} GiB in (f); VQ "
+          f"launches {launches} (ranks {[rk['launches'] for rk in ranks]}, this process "
+          f"{parent_launches} + {run_launches}); {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     return launches
 
 
@@ -3661,6 +4437,8 @@ def smoke(torch, work, t_start):
     lap("preprocess")
     import_launches = import_phase(torch, vq_kernel, work)
     lap("import")
+    parallel_launches = parallel_phase(torch, vq_kernel, work, smi)
+    lap("parallel")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -3744,13 +4522,14 @@ def smoke(torch, work, t_start):
         "replaces": "tvqvae_tpu/ops/vq_pallas.py:36",
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
                      + eval_launches + bf16_launches + ess_launches + quality_launches
-                     + preprocess_launches + import_launches + ckpt_launches),
+                     + preprocess_launches + import_launches + parallel_launches
+                     + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
                              "ess": ess_launches, "quality": quality_launches,
                              "preprocess": preprocess_launches, "import": import_launches,
-                             "ckpt": ckpt_launches},
+                             "parallel": parallel_launches, "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

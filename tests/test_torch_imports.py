@@ -66,7 +66,8 @@ def test_the_scan_covers_the_clis_and_the_checkpoint_io():
             "tvqvae_tpu_torch.utils.checkpoint", "tvqvae_tpu_torch.utils.logging",
             "tvqvae_tpu_torch.utils.import_reference", "tvqvae_tpu_torch.scripts.import_ckpt",
             "tvqvae_tpu_torch.utils.profiling", "tvqvae_tpu_torch.utils.embedding",
-            "tvqvae_tpu_torch.utils.plots", "tvqvae_tpu_torch.scripts.analyze"} <= set(_modules())
+            "tvqvae_tpu_torch.utils.plots", "tvqvae_tpu_torch.scripts.analyze",
+            "tvqvae_tpu_torch.parallel", "tvqvae_tpu_torch.parallel.mesh"} <= set(_modules())
 
 
 def _guarded_by_import_error(node, parents) -> bool:

@@ -90,6 +90,28 @@ def test_flags_and_defaults_are_the_jax_tools():
     assert Path(args.workdir).name == "qr"
 
 
+@pytest.mark.parametrize("flags, method", [([], "schur"), (["--fid_method", "svd"], "svd")])
+def test_fid_method_reaches_the_ladders_metrics(tmp_path, monkeypatch, flags, method):
+    """``--fid_method`` (default the JAX tool's schur) is the FID the
+    ladder's ``Metrics`` scores with."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def metrics(*args, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(quality_run, "Metrics", metrics)
+    monkeypatch.setattr(quality_run, "DATA", {**quality_run.DATA, "n": 8, "length": 16})
+    args = quality_run.build_argparser().parse_args(
+        ["--workdir", str(tmp_path), "--skip_train", "--device", "cpu", *flags])
+    with pytest.raises(Stop):
+        quality_run.run(args)
+    assert seen["fid_method"] == method
+
+
 def _features(rng, n, D, rank=30):
     """Unit-norm rows of a rank-``rank`` signal plus noise: n < D gives the
     singular covariance product of the quality run's ladder."""

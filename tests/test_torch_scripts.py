@@ -7,7 +7,8 @@ schema at the small shapes of ``tests/test_torch_sampler.py``: ``train
 FCN; ``train_fcn`` writes its checkpoint; ``generate`` writes finite
 ``.npz`` files in original units (raw and enhanced); the service ``serve``
 builds answers a request through ``make_server``. Every JAX option the port
-does not run is refused by name; every precision flag of the JAX CLIs
+does not run is refused by name and reason (``--no_precompute``,
+``--host_data`` and ``--data_parallel`` run since data parallelism); every precision flag of the JAX CLIs
 reaches the runners or the sampler with its value; the train CLI's defaults
 are the JAX train CLI's but ``--bundle_steps``; and a JAX ``train`` command
 line parses.
@@ -140,16 +141,58 @@ UNPORTED = [
     (train, ["--bundle_steps", "10"]), (train, ["--rbg_rng"]), (train, ["--no_precompute"]),
     (train, ["--host_data"]), (train, ["--tp", "2"]), (serve, ["--data_parallel"]),
 ]
+# the reason each refusal gives; the other three flags run since data parallelism
+REFUSED = {"--bundle_steps": "CUDA-graphed step", "--rbg_rng": "no counterpart",
+           "--tp": "tensor parallelism"}
 
 
 @pytest.mark.parametrize("script, flag", UNPORTED,
                          ids=[f"{s.__name__.rsplit('.', 1)[1]}{f[0]}" for s, f in UNPORTED])
-def test_unported_flag_is_refused(script, flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        script.main(["--dataset_file", "/nonexistent/flights.npz", *flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and flag[0] in err
+def test_unported_flag_is_refused(script, flag, capsys, monkeypatch):
+    """The JAX flags the port once refused: ``--bundle_steps`` > 1,
+    ``--rbg_rng`` and ``--tp`` > 1 still are, each naming its reason;
+    ``--no_precompute``, ``--host_data`` and serve's ``--data_parallel``
+    parse and get past the refusal (to the missing dataset file here;
+    ``tests/test_torch_parallel.py`` runs them)."""
+    if flag[0] in REFUSED:
+        with pytest.raises(SystemExit) as exc:
+            script.main(["--dataset_file", "/nonexistent/flights.npz", *flag])
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and flag[0] in err and REFUSED[flag[0]] in err
+        return
+    args = script.build_argparser().parse_args(["--dataset_file", "/nonexistent/f.npz", *flag,
+                                                "--device", "cpu"])
+    assert getattr(args, flag[0][2:]) is True
+    with pytest.raises(FileNotFoundError):
+        script.main(["--dataset_file", "/nonexistent/flights.npz", *flag, "--device", "cpu"])
+
+
+def test_serve_data_parallel_builds_over_the_devices(tmp_path, monkeypatch):
+    """``--data_parallel`` hands the sampler every device: on the CPU the CPU
+    alone; on CUDA every visible card, a batch that does not divide their
+    count refused as the JAX CLI refuses it."""
+    seen = {}
+
+    def fake(cfg, *a, **kw):
+        seen.update(kw)
+        raise RuntimeError("built")
+
+    monkeypatch.setattr(serve.TrainedModelSampler, "from_checkpoints", fake)
+    X, y = make_synthetic_trajectories(n=8, channels=C, length=L, seed=1)
+    save_npz(str(tmp_path / "d.npz"), X, y)
+    base = ["--dataset_file", str(tmp_path / "d.npz"), "--data_parallel"]
+    with pytest.raises(RuntimeError, match="built"):
+        serve.build_service(serve.build_argparser().parse_args(base + ["--device", "cpu"]))
+    assert seen["devices"] == [torch.device("cpu")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    p = serve.build_argparser()
+    with pytest.raises(SystemExit):
+        serve.build_service(p.parse_args(base + ["--batch_size", "32"]), p)
+    with pytest.raises(RuntimeError, match="built"):
+        serve.build_service(p.parse_args(base + ["--batch_size", "33"]), p)
+    assert seen["devices"] == [torch.device("cuda", i) for i in range(3)]
 
 
 _STAGES = ("train_stage1", "train_stage2", "train_stage3")

@@ -33,8 +33,22 @@ With ``cfg.maskgit.ess_use`` every batch runs the ESS sampler
 retraction takes one ``t_star`` per batch, so an ESS batch is always
 ``batch_size`` samples, the last one cut to what was asked, as the JAX
 sampler batches.
+
+``devices`` (every constructor; the counterpart of the JAX sampler's
+``mesh``) fans ``sample`` out over several devices: one replica of the
+frozen stage 1, the priors and the enhancer per device, each batch's
+decoding noise drawn once on the first device from the seeded generator
+(``models/maskgit.py::decoding_noise``, what one device draws inside) and
+split into contiguous row chunks, one per replica, each decoded in its own
+thread, and the results concatenated in order. So a seed gives the same
+series with and without the fan-out. ``batch_size`` must divide by the
+number of devices, as the JAX serve CLI checks. An ESS batch, whose step
+retraction is one per batch, runs whole on the first device, as JAX's ESS
+sampler takes no mesh; ``reconstruct`` and ``enhance`` run there too.
 """
 
+import copy
+from concurrent.futures import ThreadPoolExecutor
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +60,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     MaskGITSpec,
     build_transformers,
     decode_tokens,
+    decoding_noise,
     encode_tokens,
 )
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
@@ -80,10 +95,11 @@ class TrainedModelSampler:
         bf16_head: bool = True,
         bf16_istft: bool = True,
         device="cuda",
+        devices: Optional[Sequence] = None,
     ):
         if use_fidelity_enhancer and stage3 is None:
             raise ValueError("use_fidelity_enhancer=True needs a stage3 tree")
-        dev = resolve_device(device)
+        dev = resolve_device(devices[0] if devices else device)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels, compute_dtype=compute_dtype,
                                       fast_bn=fast_bn, bf16_head=bf16_head, bf16_istft=bf16_istft)
         frozen = FrozenStage1.from_state_dict(spec, stage1_from_jax(stage1), dev)
@@ -94,7 +110,7 @@ class TrainedModelSampler:
                                               fast_bn)
             fe.load_state_dict(fe_from_jax(stage3["params"]))
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
-                       use_fidelity_enhancer)
+                       use_fidelity_enhancer, devices)
         if stage3 is not None:
             self.tau = float(np.asarray(stage3.get("tau", 0.0)))
 
@@ -103,7 +119,8 @@ class TrainedModelSampler:
                          stage3_ckpt: Optional[str] = None, use_fidelity_enhancer: bool = False,
                          batch_size: int = 32, device="cuda", compute_dtype: str = "float32",
                          fast_bn: bool = False, bf16_head: bool = True,
-                         bf16_istft: bool = True) -> "TrainedModelSampler":
+                         bf16_istft: bool = True,
+                         devices: Optional[Sequence] = None) -> "TrainedModelSampler":
         """A sampler from stage checkpoints (``utils/checkpoint.py``), as the
         JAX sampler is built: the geometry (``input_length``,
         ``in_channels``, ``n_classes``) from the stage-1 meta, everything
@@ -117,20 +134,22 @@ class TrainedModelSampler:
                    in_channels=int(meta["in_channels"]), n_classes=int(meta["n_classes"]),
                    stage3=tree3, use_fidelity_enhancer=use_fidelity_enhancer,
                    batch_size=batch_size, compute_dtype=compute_dtype, fast_bn=fast_bn,
-                   bf16_head=bf16_head, bf16_istft=bf16_istft, device=device)
+                   bf16_head=bf16_head, bf16_istft=bf16_istft, device=device,
+                   devices=devices)
 
     @classmethod
     def from_init(cls, cfg: Config, input_length: int, in_channels: int,
                   n_classes: int, seed: int = 0, device="cuda",
                   batch_size: int = 32, use_fidelity_enhancer: bool = False,
                   compute_dtype: str = "float32", fast_bn: bool = False,
-                  bf16_head: bool = True, bf16_istft: bool = True) -> "TrainedModelSampler":
+                  bf16_head: bool = True, bf16_istft: bool = True,
+                  devices: Optional[Sequence] = None) -> "TrainedModelSampler":
         """A sampler with seeded random weights at ``cfg``'s shapes: every
         draw comes from one CPU generator, so a seed gives the same weights
         on every device and at every precision. With
         ``use_fidelity_enhancer`` the enhancer's weights are drawn after the
         priors' and it refines every sample."""
-        dev = resolve_device(device)
+        dev = resolve_device(devices[0] if devices else device)
         g = torch.Generator().manual_seed(seed)
         spec = Stage1Spec.from_config(cfg, input_length, in_channels, compute_dtype=compute_dtype,
                                       fast_bn=fast_bn, bf16_head=bf16_head, bf16_istft=bf16_istft)
@@ -142,10 +161,11 @@ class TrainedModelSampler:
               if use_fidelity_enhancer else None)
         self = cls.__new__(cls)
         self._assemble(cfg, frozen, t_l, t_h, n_classes, batch_size, dev, fe,
-                       use_fidelity_enhancer)
+                       use_fidelity_enhancer, devices)
         return self
 
-    def _assemble(self, cfg, frozen, t_l, t_h, n_classes, batch_size, device, fe, use_fe):
+    def _assemble(self, cfg, frozen, t_l, t_h, n_classes, batch_size, device, fe, use_fe,
+                  devices=None):
         spec = frozen.model.spec
         self.device = device
         self.batch_size = batch_size
@@ -164,6 +184,19 @@ class TrainedModelSampler:
         self.fe = None if fe is None else fe.to(device).eval()
         self.use_fe = use_fe
         self.tau = 0.0
+        self.devices = [device] + [resolve_device(d) for d in (devices or [])[1:]]
+        if batch_size % len(self.devices):
+            raise ValueError(f"batch_size {batch_size} must divide by the device count "
+                             f"{len(self.devices)}")
+        # (sample_fn, enhancer) per device, the first one this sampler's own
+        # (the fan-out runs only without ESS: _sample_tokens is then the plain one)
+        self._replicas = [(self._sample_tokens, self.fe)]
+        for d in self.devices[1:]:
+            f = FrozenStage1(copy.deepcopy(frozen.model).to(d), frozen.vq_l.to(d),
+                             frozen.vq_h.to(d))
+            self._replicas.append((make_sampling_fn(f, copy.deepcopy(self.t_l).to(d),
+                                                    copy.deepcopy(self.t_h).to(d), self.mg_spec),
+                                   None if self.fe is None else copy.deepcopy(self.fe).to(d)))
 
     # ------------------------------------------------------------------
 
@@ -192,15 +225,47 @@ class TrainedModelSampler:
         outs = ([], [], [])
         for i, start in enumerate(range(0, n_samples, bs)):
             b = min(bs, n_samples - start)
-            x_l, x_h, x = self._sample_tokens(bs if self.use_ess else b, class_index,
-                                              generator=gen,
-                                              noise=None if noise is None else noise[i])
-            x_l, x_h, x = x_l[:b], x_h[:b], x[:b]
-            if self.use_fe:
-                x = self._enhance(x)
-            for acc, t in zip(outs, (x_l, x_h, x)):
-                acc.append(t.cpu().numpy())
+            if len(self.devices) > 1 and not self.use_ess:
+                got = self._fan_out(b, class_index, noise[i] if noise is not None
+                                    else decoding_noise(self.mg_spec, b, gen, self.device))
+            else:
+                x_l, x_h, x = self._sample_tokens(bs if self.use_ess else b, class_index,
+                                                  generator=gen,
+                                                  noise=None if noise is None else noise[i])
+                x_l, x_h, x = x_l[:b], x_h[:b], x[:b]
+                if self.use_fe:
+                    x = self._enhance(x)
+                got = tuple(t.cpu().numpy() for t in (x_l, x_h, x))
+            for acc, t in zip(outs, got):
+                acc.append(t)
         return tuple(np.concatenate(acc) for acc in outs)
+
+    def _fan_out(self, num: int, class_index: Optional[int], noise: dict):
+        """One batch of ``num`` over the replicas: contiguous row chunks of
+        ``noise`` (split along its batch axis, 1), one thread per device.
+        -> host arrays (x_l, x_h, x) in row order."""
+        bounds = np.cumsum([0] + [len(c) for c in np.array_split(np.arange(num),
+                                                                  len(self.devices))])
+
+        threads = torch.get_num_threads()
+
+        def run(k):
+            # a new thread starts with the default intra-op (OpenMP) width:
+            # give it the caller's, so a CPU chunk reduces as the caller would
+            torch.set_num_threads(threads)
+            sample_fn, fe = self._replicas[k]
+            lo, hi, d = bounds[k], bounds[k + 1], self.devices[k]
+            chunk = {band: tuple(t[:, lo:hi].to(d) for t in ts) for band, ts in noise.items()}
+            x_l, x_h, x = sample_fn(hi - lo, class_index, noise=chunk)
+            if self.use_fe:
+                with torch.inference_mode():
+                    x = fe(x)
+            return tuple(t.cpu().numpy() for t in (x_l, x_h, x))
+
+        busy = [k for k in range(len(self.devices)) if bounds[k + 1] > bounds[k]]
+        with ThreadPoolExecutor(max_workers=len(busy)) as pool:
+            parts = list(pool.map(run, busy))
+        return tuple(np.concatenate(p) for p in zip(*parts))
 
     # ------------------------------------------------------------------
 

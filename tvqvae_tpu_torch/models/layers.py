@@ -16,7 +16,13 @@ by leaf.
     biased variance over every axis but the channel axis (1) and move the
     running statistics 0.1 of the way to the batch mean and *biased*
     variance (torch's own update takes the unbiased one). In eval mode they
-    are torch's modules over the running statistics.
+    are torch's modules over the running statistics. Inside a
+    ``torch.distributed`` process group of more than one rank
+    (``parallel/``) the train statistics are the global batch's, in both
+    modes: each rank's mean and variance of its rows go through one
+    all-reduce that the backward differentiates through, and combine by the
+    law of total variance (``_FlaxTrainStatistics._global_moments``); the
+    running statistics stay equal on every rank.
   - Only ``ResBlock2d`` drops out (after ``Conv_1``, before the skip add),
     as in the JAX stacks, which build ``EncBlock2d``/``DecBlock2d`` with rate
     0. The masks come from the ``torch.Generator`` the caller passes through
@@ -57,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tvqvae_tpu_torch.ops.snake import snake
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_sum, process_count, process_index
 
 
 def cast_dtype(name) -> Optional[torch.dtype]:
@@ -122,7 +129,9 @@ class Snake(nn.Module):
 
 class _FlaxTrainStatistics:
     """Train mode of a torch BatchNorm with flax's statistics (eps 1e-5);
-    with ``fast``, the JAX package's fast BatchNorm in train and eval mode."""
+    with ``fast``, the JAX package's fast BatchNorm in train and eval mode.
+    Inside a process group of more than one rank the train statistics are
+    the global batch's (``_global_moments``), in both modes."""
 
     MOMENTUM = 0.9  # flax convention: the weight of the old running value
 
@@ -136,14 +145,27 @@ class _FlaxTrainStatistics:
             return self._fast(x)
         if not self.training:
             return super().forward(x)
+        dims = (0, *range(2, x.dim()))
+        if process_count() > 1:
+            var, mean = torch.var_mean(x.to(stats_dtype(x)), dim=dims, correction=0)
+            mean, var = self._global_moments(mean, var)
+            self._update_running(mean, var)
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            w = self.weight * torch.rsqrt(var + self.eps)
+            return (x - mean.view(shape)) * w.view(shape) + self.bias.view(shape)
         if not self.recomputing:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, *range(2, x.dim())), correction=0)
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+            self._update_running(mean, var)
+        # batch statistics (biased variance); the running buffers are not passed
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running(self, mean, var):
+        if not self.recomputing:
+            with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
                 self.running_var.mul_(m).add_(var, alpha=1.0 - m)
-        # batch statistics (biased variance); the running buffers are not passed
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _fast(self, x):
         """float32 statistics over ``x`` (E[x^2] - E[x]^2), then ``x * w + b``
@@ -153,6 +175,8 @@ class _FlaxTrainStatistics:
             dims = (0, *range(2, x.dim()))
             mean = xf.mean(dims)
             var = xf.square().mean(dims) - mean.square()
+            if process_count() > 1:
+                mean, var = self._global_moments(mean, var)
             if not self.recomputing:
                 with torch.no_grad():
                     m = self.MOMENTUM
@@ -164,6 +188,25 @@ class _FlaxTrainStatistics:
         b = self.bias - mean * w
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * w.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+    @staticmethod
+    def _global_moments(mean, var):
+        """This rank's per-channel mean and biased variance of its rows ->
+        the global batch's, as GSPMD gives them, differentiable: one
+        all-reduce of a (W, 2, C) tensor holding each rank's row (so every
+        rank reads all of them), whose backward sums their gradients over
+        the ranks, so the step differentiates through the global statistics;
+        then mean = mean_r(m_r) and var = mean_r(v_r) + mean_r((m_r -
+        mean)^2) over the equal slices (the law of total variance), which
+        keeps the per-rank formula's conditioning where E[x^2] - E[x]^2 over
+        global sums would lose digits wherever |mean| >> std."""
+        W, r = process_count(), process_index()
+        mine = torch.stack([mean, var])[None]
+        rows = torch.cat([mine.new_zeros((r, *mine.shape[1:])), mine,
+                          mine.new_zeros((W - r - 1, *mine.shape[1:]))])
+        m, v = all_reduce_sum(rows).unbind(1)
+        mean = m.mean(0)
+        return mean, v.mean(0) + (m - mean).square().mean(0)
 
 
 class BatchNorm2d(_FlaxTrainStatistics, nn.BatchNorm2d):

@@ -43,6 +43,7 @@ from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.models.stage1 import Stage1Model, Stage1Spec
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
 from tvqvae_tpu_torch.models.vq import CodebookState, gumbel, lookup_codes, vq_forward
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_, initialized, process_count
 
 
 def gamma_fn(mode: str = "cosine") -> Callable[[np.ndarray], np.ndarray]:
@@ -179,11 +180,21 @@ def random_mask_tokens(
 
 def masked_ce(logits: torch.Tensor, targets: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     """Cross-entropy (float32 log-softmax) averaged over the masked
-    positions only; 0 where no position is masked."""
+    positions only; 0 where no position is masked.
+
+    Inside a process group the average is the global batch's, Σ(nll·w) /
+    max(Σw, 1) with both sums over every rank: each rank returns W times its
+    share of it, W·Σ_local(nll·w) / max(Σw, 1), so the mean over the ranks,
+    of the values and of the gradients (``parallel.all_reduce_grads``), is
+    the global one. A mean of per-rank means would weigh a rank that masks
+    few tokens like one that masks many."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     w = (~keep).float()
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    if not initialized():
+        return (nll * w).sum() / w.sum().clamp_min(1.0)
+    denom = all_reduce_(w.sum().detach())
+    return process_count() * (nll * w).sum() / denom.clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------
@@ -305,6 +316,24 @@ def decode_band_scan(
         masking = _rank(confidence, dim=-1) < int(mask_lens[t])
         s = torch.where(masking, torch.full_like(sampled, mask_token), sampled)
     return s
+
+
+def decoding_noise(spec: MaskGITSpec, num: int, generator: Optional[torch.Generator],
+                   device) -> dict:
+    """The draws ``iterative_decoding`` makes for a batch of ``num``, made
+    up front in its order (per LF step its categorical and confidence
+    Gumbels, then the HF steps'), as the dict its ``noise`` takes: handing
+    them in gives what drawing them inside gives from the same generator
+    state. A batch split into row chunks decodes each chunk with its rows."""
+    noise = {}
+    for band, T, n, K in (("l", spec.T_l, spec.tokens_l, spec.mask_token_l),
+                          ("h", spec.T_h, spec.tokens_h, spec.mask_token_h)):
+        g_sample, g_conf = [], []
+        for _ in range(T):
+            g_sample.append(gumbel((num, n, K), generator, device))
+            g_conf.append(_gumbel((num, n), generator, device))
+        noise[band] = (torch.stack(g_sample), torch.stack(g_conf))
+    return noise
 
 
 def iterative_decoding(

@@ -22,6 +22,12 @@ Port of ``tvqvae_tpu/models/vq.py::vq_forward``:
     the published config. Their random rows are drawn from ``generator``,
     or given as indices into the batch's rows (``kmeans_idx``,
     ``dead_code_idx``: JAX's draws, in the parity tests).
+  - inside a process group (``parallel/``) each rank quantizes its own rows
+    (the kernel launches on every rank) and train mode sums the kernel's
+    ``counts`` and ``embed_sum`` over the ranks before the EMA step, so the
+    codebooks advance as one process's would over the global batch; the
+    perplexity is the global batch's. k-means init and dead-code expiry
+    are refused there.
 
 The codebook update runs under ``torch.no_grad`` and stores tensors outside
 the autograd graph, so a step's graph dies with the step.
@@ -33,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from tvqvae_tpu_torch.ops.vq_kernel import nearest_codes_stats
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_, initialized, process_count
 
 
 @dataclass(frozen=True)
@@ -147,6 +154,10 @@ def vq_forward(
     K = p.codebook_size
     flat = x.reshape(B * N, D).float().contiguous()
 
+    if train and initialized() and (p.kmeans_init or p.threshold_ema_dead_code > 0):
+        raise NotImplementedError(
+            "k-means init and dead-code expiry inside a process group: their row draws "
+            "would differ between ranks (both are off in the published config)")
     # the latch reads a flag on the device: only where k-means init is on
     if train and p.kmeans_init and not bool(state.initted):
         means, bins = kmeans(flat.detach(), K, p.kmeans_iters, kmeans_idx, generator)
@@ -163,6 +174,13 @@ def vq_forward(
             indices = (logits + noise).argmax(-1).to(torch.int32)
             counts = torch.bincount(indices, minlength=K).float()
             embed_sum = torch.zeros_like(state.embed).index_add_(0, indices, flat)
+
+    rows = flat.shape[0]
+    if train and initialized():
+        # the batch is sharded over the ranks: the EMA statistics are the
+        # global batch's, as JAX's sum(0) over the sharded axis gives them
+        counts, embed_sum = all_reduce_(counts.detach()), all_reduce_(embed_sum.detach())
+        rows *= process_count()
 
     quantized = state.embed[indices.long()]  # the pre-update codebook
 
@@ -186,7 +204,7 @@ def vq_forward(
         commit_loss = torch.zeros((), device=flat.device)
         q = quantized.reshape(B, N, D)
 
-    avg_probs = counts / flat.shape[0]
+    avg_probs = counts / rows
     perplexity = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-10)).sum())
     return VQOutput(
         quantized=q,

@@ -22,8 +22,8 @@ def load_config(path: Optional[str]) -> Config:
 
 
 def refuse_unported(parser: argparse.ArgumentParser, flags: Mapping[str, bool]) -> None:
-    """``parser.error`` naming every flag in ``flags`` that is set, in the
-    runners' "not ported yet" wording."""
+    """``parser.error`` naming every flag in ``flags`` that is set (each
+    name carrying its reason)."""
     asked = [name for name, on in flags.items() if on]
     if asked:
-        parser.error(f"not ported yet: {', '.join(asked)}")
+        parser.error(f"not ported: {'; '.join(asked)}")

@@ -4,24 +4,29 @@ Port of ``tvqvae_tpu/scripts/serve.py``, with its flags:
 
     python -m tvqvae_tpu_torch.scripts.serve --dataset_file data.npz \
         --model_save_dir saved_models --port 8080 [--use_fe] [--warm_classes] \
-        [--bf16] [--no-fast_bn]
+        [--bf16] [--no-fast_bn] [--data_parallel]
 
 It loads the stage checkpoints as the generate CLI does and fits nothing:
 the training scaler is derived again from the dataset file, so responses
 come back in original physical units. ``--bf16`` and ``--fast_bn`` (on by
-default) set the sampler's precision, as in the JAX CLI; ``--data_parallel``
-is not ported and is refused. ``build_service`` makes the service without
-serving it. See ``tvqvae_tpu_torch/serving/`` for the endpoints.
+default) set the sampler's precision, as in the JAX CLI. ``--data_parallel``
+fans every batch out over all visible CUDA devices (the sampler's
+``devices``; ``--batch_size`` must divide by their count): one card is the
+degenerate one-device case, as in JAX, and ``--device cpu`` the CPU alone.
+``build_service`` makes the service without serving it. See ``tvqvae_tpu_torch/serving/`` for the endpoints.
 """
 
 import argparse
 import os
 from pathlib import Path
 
+import torch
+
 from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.generation import TrainedModelSampler
-from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
+from tvqvae_tpu_torch.scripts._cli import load_config
 from tvqvae_tpu_torch.serving import GenerationService, serve_forever
+from tvqvae_tpu_torch.utils.device import resolve_device
 
 
 def build_argparser():
@@ -50,13 +55,23 @@ def build_argparser():
     p.add_argument("--fast_bn", action=argparse.BooleanOptionalAction, default=True,
                    help="BatchNorm/GroupNorm normalisation in the compute dtype "
                         "(--no-fast_bn: flax's float32 promotion)")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="fan generation out over every visible CUDA device (batch_size must "
+                        "divide by the device count; one device needs no flag)")
     return p
 
 
 def build_service(args, parser=None) -> GenerationService:
     """The service ``main`` serves, from parsed arguments, not yet warmed."""
-    refuse_unported(parser or build_argparser(), {"--data_parallel": args.data_parallel})
+    devices = None
+    if args.data_parallel:
+        dev = resolve_device(args.device)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+        if args.batch_size % len(devices):
+            (parser or build_argparser()).error(
+                f"--batch_size {args.batch_size} must divide by the device count {len(devices)}")
+        print(f"[serve] data-parallel over {len(devices)} devices", flush=True)
     cfg = load_config(args.config)
     data = get_data(args.dataset_file, cfg.dataset.features, scale=cfg.dataset.data_scaling)
     ckpt = os.path.join(args.model_save_dir, Path(args.dataset_file).stem)
@@ -71,6 +86,7 @@ def build_service(args, parser=None) -> GenerationService:
         compute_dtype="bfloat16" if args.bf16 else "float32",
         fast_bn=args.fast_bn,
         device=args.device,
+        devices=devices,
     )
     return GenerationService(
         sampler,

@@ -23,10 +23,17 @@ temperature by FID first (``generation.search_optimal_tau``).
 The JAX flags all parse, with the JAX CLI's defaults but one: the
 production recipe's ``--fast_bn --bf16_mu --bf16_head`` on, ``--bf16``,
 ``--bf16_nu``, ``--bf16_istft`` and ``--remat`` off, passed to the runners as
-the JAX CLI passes them (stage 3 gets ``fast_norm=--fast_bn``). The
-exception is ``--bundle_steps``, 1 here: step bundles are not ported.
-Asking for ``--bundle_steps`` > 1, ``--rbg_rng``, ``--no_precompute``,
-``--host_data`` or ``--tp`` > 1 is an error naming it.
+the JAX CLI passes them (stage 3 gets ``fast_norm=--fast_bn``);
+``--host_data`` feeds stage 1 per-step host batches (``data_on_device=False``)
+and ``--no_precompute`` runs the frozen stage 1 inside every step of stages 2
+and 3 (``precompute=False``). The exception is ``--bundle_steps``, 1 here.
+Asking for ``--bundle_steps`` > 1, ``--rbg_rng`` or ``--tp`` > 1 is an error
+naming it and its reason (``runner.REFUSED``).
+
+Data-parallel training: run this CLI in every rank of a ``torch.distributed``
+process group that the launching code initialised (the JAX CLI has no
+launcher flag either; ``train/runner.py`` says what the ranks share). The
+primary rank logs; every rank trains its slice of each global batch.
 """
 
 import argparse
@@ -36,6 +43,7 @@ from pathlib import Path
 from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.evaluation import Metrics
 from tvqvae_tpu_torch.generation import TrainedModelSampler, search_optimal_tau
+from tvqvae_tpu_torch.parallel import is_primary
 from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
 from tvqvae_tpu_torch.train import runner
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
@@ -79,12 +87,18 @@ def build_argparser():
     p.add_argument("--bf16_istft", action=argparse.BooleanOptionalAction, default=False,
                    help="stage 1: the decode path's iSTFT in the compute dtype")
     # the JAX package's options the port does not run: refused when asked for
+    p.add_argument("--no_precompute", action="store_true",
+                   help="stages 2/3: run the frozen stage 1 inside every step instead of "
+                        "the one-sweep precompute (the reference behaviour)")
+    p.add_argument("--host_data", action="store_true",
+                   help="stage 1: per-step host batches instead of the device-resident gather")
     p.add_argument("--bundle_steps", type=int, default=1,
-                   help="optimizer steps per dispatch; > 1 is not ported yet")
-    p.add_argument("--rbg_rng", action="store_true", help="not ported yet")
-    p.add_argument("--no_precompute", action="store_true", help="not ported yet")
-    p.add_argument("--host_data", action="store_true", help="not ported yet")
-    p.add_argument("--tp", type=int, default=1, help="tensor-parallel width; > 1 is not ported yet")
+                   help="optimizer steps per dispatch; > 1 is refused: "
+                        + runner.REFUSED["bundle_steps"])
+    p.add_argument("--rbg_rng", action="store_true",
+                   help="refused: " + runner.REFUSED["rng_impl"])
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width; > 1 is refused: " + runner.REFUSED["tp"])
     return p
 
 
@@ -106,9 +120,9 @@ def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
     refuse_unported(p, {
-        "--bundle_steps > 1": args.bundle_steps > 1, "--rbg_rng": args.rbg_rng,
-        "--no_precompute": args.no_precompute, "--host_data": args.host_data,
-        "--tp > 1": args.tp > 1,
+        f"--bundle_steps > 1 ({runner.REFUSED['bundle_steps']})": args.bundle_steps > 1,
+        f"--rbg_rng ({runner.REFUSED['rng_impl']})": args.rbg_rng,
+        f"--tp > 1 ({runner.REFUSED['tp']})": args.tp > 1,
     })
     dtype = "bfloat16" if args.bf16 else "float32"
     moments = dict(bf16_mu=args.bf16_mu, bf16_nu=args.bf16_nu)
@@ -121,6 +135,8 @@ def main(argv=None):
     paths["fcn"] = os.path.join(ckpt_dir, "fcn")
 
     def logger(stage):
+        if not is_primary():
+            return None
         return RunLogger(
             os.path.join(args.run_dir, f"{stem}_{stage}"),
             experiment_name=cfg.logger.experiment_name,
@@ -130,7 +146,8 @@ def main(argv=None):
 
     stages = ["1", "2", "3"] if args.stage == "all" else [args.stage]
     val_metrics = None
-    if not args.no_val_metrics and any(s in ("2", "3") for s in stages):
+    # the primary rank alone scores validations
+    if is_primary() and not args.no_val_metrics and any(s in ("2", "3") for s in stages):
         # the configured featuriser; the supervised FCN needs a trained fcn
         # checkpoint and falls back to ROCKET without one
         fx = cfg.evaluation.feature_extractor_type
@@ -153,11 +170,12 @@ def main(argv=None):
                 runner.train_stage1(cfg, data, logger=log, save_path=paths["1"],
                                     compute_dtype=dtype, remat=args.remat, fast_bn=args.fast_bn,
                                     bf16_head=args.bf16_head, bf16_istft=args.bf16_istft,
-                                    **moments, **common)
+                                    data_on_device=not args.host_data, **moments, **common)
             elif stage == "2":
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
                 runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"],
-                                    metrics=val_metrics, **moments, **common)
+                                    metrics=val_metrics, precompute=not args.no_precompute,
+                                    **moments, **common)
             elif stage == "3":
                 tau = search_tau(cfg, data, paths, args.device) if args.search_tau else 0.0
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
@@ -165,13 +183,15 @@ def main(argv=None):
                     cfg, data, frozen, tau=tau, logger=log, save_path=paths["3"],
                     stage2_ckpt=paths["2"] if os.path.exists(paths["2"]) else None,
                     metrics=val_metrics, compute_dtype=dtype, fast_norm=args.fast_bn,
-                    **moments, **common)
+                    precompute=not args.no_precompute, **moments, **common)
             elif stage == "fcn":
                 runner.train_fcn(cfg, data, logger=log, seed=args.seed, device=args.device,
                                  save_path=paths["fcn"])
         finally:
-            log.close()
-    print(f"checkpoints in {ckpt_dir}")
+            if log is not None:
+                log.close()
+    if is_primary():
+        print(f"checkpoints in {ckpt_dir}")
 
 
 if __name__ == "__main__":

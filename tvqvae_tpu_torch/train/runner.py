@@ -13,7 +13,21 @@ masked out of the sums. Nothing reads a value back from the device between
 steps; the loop waits for the device only where it prints, validates or
 snapshots. Batches follow ``make_batches(shuffle=True, seed=seed,
 repeat=True)``; the JAX device path permutes on the device with threefry
-instead, a deviation its own runner calls non-semantic.
+instead, a deviation its own runner calls non-semantic. ``data_on_device=False``
+(stage 1) feeds the same batches from the host, and ``precompute=False``
+(stages 2 and 3) runs the frozen stage 1 inside every step, as in JAX.
+
+Data parallelism (``parallel/``): the runners run unchanged in every rank of
+a ``torch.distributed`` process group that the caller initialised, as JAX's
+do under ``jax.distributed``. With more than one rank they take the JAX
+package's multi-process paths: per-step host batches, each rank its
+contiguous slice of every global batch (``make_batches(process_index,
+process_count)``), and the on-the-fly steps of stages 2 and 3. The steps
+reduce what JAX reduces over the sharded batch (BatchNorm statistics, the VQ
+statistics, the masked cross-entropy, the gradients), so W ranks take the
+step one process takes over the global batch; rank r draws its dropouts and
+masks from its own generator. The primary rank prints, logs, validates
+stages 2-3 and writes every file; the others wait at a barrier.
 
 Stages 2 and 3 take their frozen stage 1 in memory: ``load_stage1_bundle``
 of a stage-1 checkpoint (as the JAX runner reads it),
@@ -56,6 +70,19 @@ from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import FrozenStage1, MaskGITSpec, build_transformers
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.models.vq import CodebookState
+from tvqvae_tpu_torch.parallel.mesh import (
+    all_gather_object,
+    all_reduce_,
+    all_reduce_grads,
+    all_reduce_metrics,
+    broadcast_,
+    initialized,
+    is_primary,
+    prefetch_batches,
+    process_count,
+    process_index,
+    replicate_,
+)
 from tvqvae_tpu_torch.train.optim import adamw
 from tvqvae_tpu_torch.train.stage1 import (
     Stage1TrainState,
@@ -68,6 +95,7 @@ from tvqvae_tpu_torch.train.stage2 import (
     create_stage2_state,
     init_stage2,
     make_sampling_fn,
+    make_stage2_train_step,
     precompute_token_dataset,
     priors_from_tree,
     stage2_train_step_tokens,
@@ -136,7 +164,7 @@ def _stage_completed(save_path: str, max_steps: int, resume: bool,
     except (OSError, ValueError, TypeError):
         return False
     if done >= max_steps:
-        print(f"[{name}] checkpoint already records completed_step {done} "
+        _say(f"[{name}] checkpoint already records completed_step {done} "
               f">= max_steps {max_steps}; skipping (pass resume=False or "
               f"delete the checkpoint to retrain)")
         return True
@@ -169,11 +197,20 @@ def load_fcn_bundle(fcn_ckpt: str, device="cuda"):
     return fcn.to(resolve_device(device)).eval(), meta
 
 
+def _say(*args, **kw) -> None:
+    """``print`` on the primary rank only."""
+    if is_primary():
+        print(*args, **kw)
+
+
 def train_state_payload(state, generator: torch.Generator) -> dict:
     """What resumes ``state`` (a stage's train state) exactly: the state dict
     of each module in it, its codebooks, the optimizer's and the schedule's
-    states, the step, and the state of the generator the steps draw from."""
-    payload = {"step": int(state.step), "generator": generator.get_state(),
+    states, the step, and the state of the generator the steps draw from:
+    ``generators`` holds every rank's in rank order (each rank draws its own
+    dropouts and masks), so inside a process group every rank calls this
+    together."""
+    payload = {"step": int(state.step), "generators": all_gather_object(generator.get_state()),
                "optimizer": state.optimizer.state_dict(),
                "scheduler": state.scheduler.state_dict()}
     for f in dataclasses.fields(state):
@@ -188,7 +225,12 @@ def train_state_payload(state, generator: torch.Generator) -> dict:
 def restore_train_state(state, generator: torch.Generator, payload: dict) -> int:
     """Load ``train_state_payload``'s payload into a freshly built ``state``
     of the same shapes (the schedule rebuilt by the caller, then its counter
-    loaded) and into ``generator``. -> the step it resumes after."""
+    loaded) and into ``generator``, this rank's stream. -> the step it
+    resumes after. A snapshot resumes only with as many ranks as wrote it."""
+    gens = payload["generators"]
+    if len(gens) != process_count():
+        raise ValueError(f"the snapshot holds the generators of {len(gens)} ranks, "
+                         f"not of {process_count()}: resume with as many processes")
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
         if isinstance(v, torch.nn.Module):
@@ -197,18 +239,19 @@ def restore_train_state(state, generator: torch.Generator, payload: dict) -> int
             setattr(state, f.name, CodebookState(**payload[f.name]).to(v.embed.device))
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
-    generator.set_state(payload["generator"])
+    generator.set_state(gens[process_index()])
     state.step = int(payload["step"])
     return state.step
 
 
 def _resume(save_path: Optional[str], resume: bool, state, generator, name: str) -> int:
     """The step a run starts after: that of ``save_path + ".train"``, loaded
-    into ``state`` and ``generator``, or 0."""
+    into ``state`` and ``generator``, or 0. Every rank reads the same
+    snapshot."""
     if not (save_path and resume and os.path.exists(save_path + ".train")):
         return 0
     step = restore_train_state(state, generator, load_train_state(save_path + ".train"))
-    print(f"[{name}] resuming from step {step}")
+    _say(f"[{name}] resuming from step {step}")
     return step
 
 
@@ -223,8 +266,52 @@ def _save_stage(name: str, save_path: str, tree: dict, cfg: Config, data: Datase
                 completed_step: Optional[int]) -> None:
     t0 = time.time()
     save_checkpoint(save_path, tree, meta=config_meta(cfg, data, completed_step))
-    print(f"[{name}] checkpoint {save_path}: {os.path.getsize(save_path) / 1e6:.1f} MB "
-          f"in {time.time() - t0:.1f}s")
+    _say(f"[{name}] checkpoint {save_path}: {os.path.getsize(save_path) / 1e6:.1f} MB "
+         f"in {time.time() - t0:.1f}s")
+
+
+def _rank_generator(seed: int, dev) -> torch.Generator:
+    """The generator of this rank's dropouts, masks and SVQ draws: seeded
+    ``seed`` on rank 0 (a one-process run's), with the rank folded in on the
+    others, so the ranks' slices do not share masks."""
+    return torch.Generator(device=dev).manual_seed(seed + (process_index() << 32))
+
+
+def _replicate(*parts) -> None:
+    """Broadcast rank 0's modules and codebooks (``CodebookState``) to every
+    rank; they are built from one seed, so this only guards the invariant."""
+    for part in parts:
+        if isinstance(part, CodebookState):
+            for f in dataclasses.fields(part):
+                broadcast_(getattr(part, f.name))
+        else:
+            replicate_(part)
+
+
+def _feed(arrays, batch_size: int, max_steps: int, seed: int, dev, start_step: int = 0,
+          on_device: bool = True) -> Callable:
+    """-> ``batch(step)``: the step's batch of each array of ``arrays`` (None
+    passing through) on ``dev``, in ``make_batches(shuffle=True, seed=seed,
+    repeat=True)``'s global order. One process with ``on_device`` uploads
+    the arrays once and gathers every batch on the device
+    (``_batch_order``). Otherwise, or inside a process group of more than one
+    rank (as in JAX), per-step host batches from step ``start_step`` + 1 on,
+    each rank its slice of every global batch, reach ``dev`` through
+    ``prefetch_batches``: the same batches."""
+    N = len(arrays[0])
+    if on_device and process_count() == 1:
+        order = _batch_order(N, batch_size, max_steps, seed, dev)
+        on_dev = [None if a is None else torch.from_numpy(a).to(dev) for a in arrays]
+        return lambda step: tuple(None if a is None else a[order[step - 1]] for a in on_dev)
+    if N < batch_size:
+        raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
+    order = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed, repeat=True,
+                         process_index=process_index(), process_count=process_count())
+    for _ in range(start_step):
+        next(order)
+    batches = prefetch_batches((tuple(None if a is None else a[idx] for a in arrays)
+                                for idx, _ in order), dev)
+    return lambda step: next(batches)
 
 
 def _adamw(cfg: Config, max_steps: int, bf16_mu: bool = False, bf16_nu: bool = False) -> Callable:
@@ -246,17 +333,26 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
     the end (the stage checkpoint supersedes it).
     ``logger.log_metrics(metrics, step)`` gets the train metrics as 0-dim
     device tensors (reading one waits for the device) and the validation
-    metrics as floats."""
+    metrics as floats.
+
+    Inside a process group every rank runs the loop: the train metrics are
+    averaged over the ranks where they are logged or printed (at the same
+    steps on every rank), and the primary alone prints and logs."""
     timer = StepTimer()
     t0 = time.time()
     last = {"step": start_step, "t": t0}  # segment-rate anchor
+    logger = logger if is_primary() else None
     for step in range(start_step + 1, max_steps + 1):
         metrics = train_once(step)
         timer.tick()
-        if logger and (step % log_interval == 0 or step == max_steps):
+        at_log = step % log_interval == 0 or step == max_steps
+        at_val = step % max(val_interval, 1) == 0 or step == max_steps
+        if at_log or at_val:
+            metrics = all_reduce_metrics(metrics)
+        if logger and at_log:
             logger.log_metrics({f"train/{k}": v for k, v in metrics.items()}
                                | timer.summary(), step)
-        if step % max(val_interval, 1) == 0 or step == max_steps:
+        if at_val:
             val = eval_once(step) if eval_once else {}
             now = time.time()
             rate = (step - start_step) / (now - t0)
@@ -264,7 +360,7 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
             seg = (step - last["step"]) / max(now - last["t"], 1e-9)
             last["step"], last["t"] = step, now
             line = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
-            print(f"[{name}] step {step}/{max_steps} "
+            _say(f"[{name}] step {step}/{max_steps} "
                   f"({rate:.1f} it/s cum, {seg:.1f} seg) {line}")
             if logger and val:
                 logger.log_metrics({f"val/{k}": v for k, v in val.items()}, step)
@@ -272,9 +368,20 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
                 snapshot(step)
 
 
+REFUSED = {
+    "bundle_steps": "in eager PyTorch a bundle of steps is a Python loop of the same steps; "
+                    "bundles return only as a CUDA-graphed step",
+    "tp": "tensor parallelism is not ported yet",
+    "rng_impl": "torch has no counterpart to XLA's counter-based RNG implementations",
+}
+
+
 def _unported(**flags) -> None:
-    if any(flags.values()):
-        raise NotImplementedError(f"not ported yet: {', '.join(k for k, v in flags.items() if v)}")
+    """``NotImplementedError`` naming each JAX runner option asked for that
+    the port refuses, with its reason (``REFUSED``)."""
+    asked = [k for k, v in flags.items() if v]
+    if asked:
+        raise NotImplementedError("; ".join(f"{k}: {REFUSED[k]}" for k in asked))
 
 
 def _val_samples(cfg: Config, sample_fn: Callable, n_val: Optional[int], seed: int, dev,
@@ -344,6 +451,7 @@ def train_stage1(
     rng_impl: Optional[str] = None,
     save_path: Optional[str] = None,
     resume: bool = True,
+    data_on_device: bool = True,
 ) -> Optional[Stage1TrainState]:
     """Train stage 1 from seeded random weights for ``max_steps`` (default:
     the config's) and return the final state, or None when ``save_path``'s
@@ -353,45 +461,57 @@ def train_stage1(
     "step"}`` there at the end. Batches of
     ``dataset.batch_sizes["stage1"]`` follow ``make_batches(shuffle=True,
     seed=seed, repeat=True)``; dropout masks come from a generator seeded
-    ``seed + 1``. ``compute_dtype``, ``remat``, ``fast_bn``, ``bf16_head``
+    ``seed + 1`` (rank 0's). ``compute_dtype``, ``remat``, ``fast_bn``, ``bf16_head``
     and ``bf16_istft`` go into the spec (``models/stage1.py``), ``bf16_mu``
     and ``bf16_nu`` into the optimizer (``_adamw``), as in the JAX runner.
-    Its step bundles (``bundle_steps`` > 1), tensor parallelism (``tp`` > 1)
-    and RNG implementation (``rng_impl``) are not ported and raise
-    ``NotImplementedError``."""
+    With ``data_on_device`` (the default) the train split is uploaded once
+    and each step gathers its batch on the device; without it, or inside a
+    process group of more than one rank (as in JAX), each step's batch comes
+    from the host (``_feed``), the same batches. Inside a process group
+    each rank steps on its slice of every global batch: the BatchNorm
+    statistics, the VQ's EMA statistics, the gradients and the logged
+    metrics are the global batch's (``parallel/``), rank r's dropout masks
+    come from its own generator (``_rank_generator``), the primary alone
+    writes the checkpoint and snapshots (holding every rank's generator),
+    and validation spreads its batches over the ranks.
+    Step bundles (``bundle_steps`` > 1: in eager PyTorch a bundle is a loop
+    of the same steps, and would return as a CUDA-graphed step), tensor
+    parallelism (``tp`` > 1) and XLA's RNG implementations (``rng_impl``:
+    torch has no counterpart) raise ``NotImplementedError``."""
     _unported(bundle_steps=bundle_steps > 1, tp=tp > 1, rng_impl=rng_impl is not None)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage1"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage1"):
         return None
-    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_init = time.time()
     spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels,
                                   compute_dtype=compute_dtype, remat=remat, fast_bn=fast_bn,
                                   bf16_head=bf16_head, bf16_istft=bf16_istft)
     model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(seed), dev)
+    _replicate(model, vq_l, vq_h)
     state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    print(f"[stage1] model init: {time.time() - t_init:.1f}s")
+    _say(f"[stage1] model init: {time.time() - t_init:.1f}s")
 
-    t_up = time.time()
-    X_dev = torch.from_numpy(data.X_train).to(dev)
-    print(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
-          f"{time.time() - t_up:.1f}s")
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gen = _rank_generator(seed + 1, dev)
     start_step = _resume(save_path, resume, state, gen, "stage1")
     step_fn = make_stage1_train_step()
+    t_up = time.time()
+    batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step, data_on_device)
+    if data_on_device and process_count() == 1:
+        _say(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
+             f"{time.time() - t_up:.1f}s")
 
     def train_once(step):
-        return step_fn(state, X_dev[order[step - 1]], gen)[1]
+        return step_fn(state, batch(step)[0], gen)[1]
 
     eval_once = _make_eval(state, data.X_test, batch_size, dev) if len(data.X_test) else None
     t_loop = time.time()
     _loop("stage1", max_steps, train_once, eval_once, logger,
           cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval,
           start_step, _snapshotter(save_path, state, gen))
-    print(f"[stage1] loop {time.time() - t_loop:.1f}s")
+    _say(f"[stage1] loop {time.time() - t_loop:.1f}s")
     if save_path:
         tree = stage1_to_jax(state.model, state.vq_l, state.vq_h)
         _save_stage("stage1", save_path, {**tree, "step": np.asarray(state.step, np.int32)},
@@ -416,6 +536,7 @@ def train_stage2(
     log_interval: int = 100,
     save_path: Optional[str] = None,
     resume: bool = True,
+    precompute: bool = True,
 ) -> Optional[Stage2TrainState]:
     """Train both MaskGIT priors from seeded random weights over ``frozen``
     (on ``device``) for ``max_steps`` (default: the config's) and return the
@@ -424,19 +545,26 @@ def train_stage2(
     checkpoint is ``{"params": {"l", "h"}, "h_stats", "step"}``. A resumed
     run encodes the token dataset again (the sweep is deterministic).
 
-    One sweep encodes the train split to token grids through the VQ
-    kernel, and the steps run on those. The JAX runner's on-the-fly path
-    (``precompute=False``) serves only its multi-host feed, so it is not
-    here; ``train/stage2.py::make_stage2_train_step`` is that step. Batches
-    of ``dataset.batch_sizes["stage2"]`` follow ``make_batches(shuffle=True,
-    seed=seed, repeat=True)`` (the JAX token path permutes on the device with
-    threefry instead, a deviation its own runner calls non-semantic); masks
-    and dropouts come from a generator seeded ``seed + 1``. With ``metrics``
-    each validation scores ``val_n_samples`` series sampled from the priors
-    as they are, from a generator seeded ``10_000 + step`` (module
-    docstring). ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16.
-    The step bundles (``bundle_steps`` > 1) and tensor parallelism (``tp`` >
-    1) of the JAX runner are not ported and raise ``NotImplementedError``."""
+    With ``precompute`` (the default) one sweep encodes the train split to
+    token grids through the VQ kernel, and the steps run on those, gathered
+    on the device; without it, or inside a process group of more than one
+    rank (as in JAX), each step encodes its batch through the frozen stage 1
+    (``train/stage2.py::make_stage2_train_step``, two VQ launches) and makes
+    the same update from the same generator state: one process gathers the
+    batch on the device, the ranks of a group take host batches
+    (``_feed``). Batches of ``dataset.batch_sizes["stage2"]`` follow
+    ``make_batches(shuffle=True, seed=seed, repeat=True)`` (the JAX token
+    path permutes on the device with threefry instead, a deviation its own
+    runner calls non-semantic); masks and dropouts come from a generator
+    seeded ``seed + 1`` (rank 0's). With ``metrics`` each validation scores
+    ``val_n_samples`` series sampled from the priors as they are, from a
+    generator seeded ``10_000 + step`` (module docstring), on the primary
+    rank. ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16. Inside
+    a process group the ranks step as in ``train_stage1``: the HF prior's
+    BatchNorm statistics, the masked cross-entropies' denominators, the
+    gradients and the logged metrics are the global batch's. The step
+    bundles (``bundle_steps`` > 1) and tensor parallelism (``tp`` > 1) raise
+    ``NotImplementedError``."""
     _unported(bundle_steps=bundle_steps > 1, tp=tp > 1)
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
@@ -445,23 +573,31 @@ def train_stage2(
     max_steps = max_steps or cfg.trainer_params.max_steps["stage2"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage2"):
         return None
-    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
 
     t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
                            torch.Generator().manual_seed(seed), dev)
+    _replicate(t_l, t_h)
     state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gen = _rank_generator(seed + 1, dev)
     start_step = _resume(save_path, resume, state, gen, "stage2")
-    y_dev = torch.from_numpy(data.y_train).to(dev)
-    t0 = time.time()
-    tok_l, tok_h = precompute_token_dataset(frozen, torch.from_numpy(data.X_train).to(dev),
-                                            batch_size=max(batch_size, 64))
-    print(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
-    tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
+    if precompute and process_count() == 1:
+        order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+        y_dev = torch.from_numpy(data.y_train).to(dev)
+        t0 = time.time()
+        tok_l, tok_h = precompute_token_dataset(frozen, torch.from_numpy(data.X_train).to(dev),
+                                                batch_size=max(batch_size, 64))
+        _say(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
+        tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
 
-    def train_once(step):
-        idx = order[step - 1]
-        return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
+        def train_once(step):
+            idx = order[step - 1]
+            return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
+    else:
+        step_fn = make_stage2_train_step(frozen)
+        batch = _feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev, start_step)
+
+        def train_once(step):
+            return step_fn(state, *batch(step), gen)[1]
 
     eval_once = None
     if metrics is not None:
@@ -469,6 +605,8 @@ def train_stage2(
                                      MaskGITSpec.from_config(cfg, frozen.model.spec))
 
         def eval_once(step):
+            if not is_primary():
+                return {}
             return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
                                                           10_000 + step, dev))
 
@@ -504,6 +642,7 @@ def train_stage3(
     log_interval: int = 100,
     save_path: Optional[str] = None,
     resume: bool = True,
+    precompute: bool = True,
 ) -> Optional[Stage3TrainState]:
     """Train the fidelity enhancer from seeded random weights over ``frozen``
     (on ``device``) for ``max_steps`` (default: the config's) and return the
@@ -512,22 +651,27 @@ def train_stage3(
     checkpoint is ``{"params": {"Unet1D_0": ...}, "tau", "step"}`` with the
     ``tau`` the run trained at.
 
-    At tau = 0 one sweep computes x' for the train split through the VQ
-    kernel (batches of ``max(batch_size, 32)``) and the steps gather (x, x')
-    pairs; at tau > 0 each step runs its own stochastic round trip. The JAX
-    runner's ``precompute=False`` at tau = 0 serves only its multi-host feed
-    and is not here: ``train/stage3.py::make_stage3_train_step`` is that
-    step. Batches of ``dataset.batch_sizes["stage3"]``;
-    the SVQ draws and the dropout masks come from a generator seeded
-    ``seed + 1``. With ``metrics`` and ``stage2_ckpt`` (a stage-2
-    checkpoint's path) each validation scores ``val_n_samples``
-    series sampled from those priors, from a generator seeded ``20_000 +
-    step``, raw and through the enhancer as it is (module docstring); with
-    ``metrics`` alone it scores nothing, as in JAX. ``compute_dtype`` and
-    ``fast_norm`` go to the enhancer, ``bf16_mu``/``bf16_nu`` to the
-    optimizer; the frozen stage 1 stays as it was loaded (float32 from the
-    CLI, as in JAX). The step bundles (``bundle_steps`` > 1) and tensor
-    parallelism (``tp`` > 1) of the JAX runner are not ported and raise
+    With ``precompute`` (the default) at tau = 0 one sweep computes x' for
+    the train split through the VQ kernel (batches of ``max(batch_size,
+    32)``) and the steps gather (x, x') pairs on the device. At tau > 0,
+    without ``precompute``, or inside a process group of more than one rank
+    (as in JAX), each step runs its own round trip of its batch
+    (``train/stage3.py::make_stage3_train_step``), which at tau = 0 makes the
+    same update from the same generator state: one process gathers the
+    batch on the device, the ranks of a group take host batches
+    (``_feed``). Batches of
+    ``dataset.batch_sizes["stage3"]``; the SVQ draws and the dropout masks
+    come from a generator seeded ``seed + 1`` (rank 0's). With ``metrics``
+    and ``stage2_ckpt`` (a stage-2 checkpoint's path) each validation scores
+    ``val_n_samples`` series sampled from those priors, from a generator
+    seeded ``20_000 + step``, raw and through the enhancer as it is (module
+    docstring), on the primary rank; with ``metrics`` alone it scores
+    nothing, as in JAX. ``compute_dtype`` and ``fast_norm`` go to the
+    enhancer, ``bf16_mu``/``bf16_nu`` to the optimizer; the frozen stage 1
+    stays as it was loaded (float32 from the CLI, as in JAX). Inside a
+    process group the gradients and the logged metrics are the global
+    batch's (the enhancer's GroupNorms are per series). The step bundles
+    (``bundle_steps`` > 1) and tensor parallelism (``tp`` > 1) raise
     ``NotImplementedError``. So does
     ``percept_loss_weight`` > 0: the JAX runner hands its steps no
     ``percept_fn`` and so trains such a config without the term; the port
@@ -546,29 +690,33 @@ def train_stage3(
     max_steps = max_steps or cfg.trainer_params.max_steps["stage3"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage3"):
         return None
-    order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
-    precompute = tau == 0.0
-    step_fn = make_stage3_train_step_pre() if precompute else make_stage3_train_step(frozen, tau)
+    precompute = precompute and tau == 0.0 and process_count() == 1
 
     fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
                                                   compute_dtype, fast_norm),
                      torch.Generator().manual_seed(seed), dev)
+    _replicate(fe)
     state = create_stage3_state(fe, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    gen = _rank_generator(seed + 1, dev)
     start_step = _resume(save_path, resume, state, gen, "stage3")
-    X_dev = torch.from_numpy(data.X_train).to(dev)
     if precompute:
+        step_fn = make_stage3_train_step_pre()
+        order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+        X_dev = torch.from_numpy(data.X_train).to(dev)
         t0 = time.time()
         xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
                                            keep_on_device=True)
-        print(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
+        _say(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
 
         def train_once(step):
             idx = order[step - 1]
             return step_fn(state, X_dev[idx], xprime[idx], gen)[1]
     else:
+        step_fn = make_stage3_train_step(frozen, tau)
+        batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
+
         def train_once(step):
-            return step_fn(state, X_dev[order[step - 1]], gen)[1]
+            return step_fn(state, batch(step)[0], gen)[1]
 
     eval_once = None
     if metrics is not None and stage2_ckpt is not None:
@@ -578,6 +726,8 @@ def train_stage3(
                                      MaskGITSpec.from_config(cfg, frozen.model.spec))
 
         def eval_once(step):
+            if not is_primary():
+                return {}
             return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
                                                           20_000 + step, dev, enhance=state.fe))
 
@@ -601,6 +751,7 @@ def fcn_train_step(fcn: FCN, optimizer, scheduler, x: torch.Tensor, y: torch.Ten
     ce = torch.nn.functional.cross_entropy(logits, labels)
     optimizer.zero_grad(set_to_none=True)
     ce.backward()
+    all_reduce_grads(fcn.parameters())
     optimizer.step()
     scheduler.step()
     return ce.detach(), (logits.detach().argmax(-1) == labels).float().mean()
@@ -629,24 +780,30 @@ def train_fcn(
     ``save_path`` the run ends by writing ``{"params", "batch_stats"}``
     there (``load_fcn_bundle`` reads it); it takes no snapshots, as in JAX.
     ``logger.log_metrics`` gets ``train/loss`` and ``train/acc`` as 0-dim
-    device tensors every ``log_interval`` steps."""
+    device tensors every ``log_interval`` steps. One process gathers its
+    batches on the device; inside a process group of more than one rank each
+    rank steps on its slice of every global batch from the host, with the
+    BatchNorm statistics, gradients and logged metrics the global batch's."""
     dev = resolve_device(device)
     max_steps = max_epochs
     bs = min(batch_size, len(data.X_train))
-    order = _batch_order(len(data.X_train), bs, max_steps, seed, dev)
     fcn = init_weights_(FCN(data.in_channels, data.n_classes),
                         torch.Generator().manual_seed(seed)).to(dev)
+    _replicate(fcn)
     optimizer, scheduler = adamw(fcn.parameters(), cosine_decay_schedule(lr, max_steps),
                                  weight_decay=weight_decay)
-    X_dev = torch.from_numpy(data.X_train).to(dev)
-    y_dev = torch.from_numpy(data.y_train).to(dev)
+    batch = _feed((data.X_train, data.y_train), bs, max_steps, seed, dev)
+    logger = logger if is_primary() else None
     for step in range(1, max_steps + 1):
-        idx = order[step - 1]
-        ce, acc = fcn_train_step(fcn, optimizer, scheduler, X_dev[idx], y_dev[idx])
-        if logger and step % log_interval == 0:
+        ce, acc = fcn_train_step(fcn, optimizer, scheduler, *batch(step))
+        at_log, at_print = step % log_interval == 0, step % 200 == 0 or step == max_steps
+        if at_log or at_print:
+            m = all_reduce_metrics({"ce": ce, "acc": acc})
+            ce, acc = m["ce"], m["acc"]
+        if logger and at_log:
             logger.log_metrics({"train/loss": ce, "train/acc": acc}, step)
-        if step % 200 == 0 or step == max_steps:
-            print(f"[fcn] step {step}/{max_steps} ce={float(ce):.4f} acc={float(acc):.3f}")
+        if at_print:
+            _say(f"[fcn] step {step}/{max_steps} ce={float(ce):.4f} acc={float(acc):.3f}")
     if save_path:
         _save_stage("fcn", save_path, fcn_to_jax(fcn), cfg, data, None)
     return fcn.eval()
@@ -656,7 +813,10 @@ def _make_eval(state: Stage1TrainState, X_test: np.ndarray, batch_size: int, dev
     """Validation over the whole test split: fixed batches of
     ``min(batch_size, N)`` indices, the last wrapped around to the start,
     and the wrapped entries masked out of the per-sample sums, so the
-    metrics are exact means over the split."""
+    metrics are exact means over the split. Inside a process group rank r
+    evaluates batches r, r + W, ... (the split must make a batch for every
+    rank) and one all-reduce sums the sums: the same means as one
+    process's, up to the order of the additions."""
     eval_step = make_stage1_eval_step(per_sample=True)
     X = torch.from_numpy(X_test).to(dev)
     N = len(X_test)
@@ -664,15 +824,26 @@ def _make_eval(state: Stage1TrainState, X_test: np.ndarray, batch_size: int, dev
     nb = -(-N // bs)
     flat = torch.arange(nb * bs, device=dev)
     idx, valid = (flat % N).reshape(nb, bs), (flat < N).reshape(nb, bs)
+    if nb < process_count():
+        raise ValueError(f"{N} test series make {nb} validation batches of {bs}, fewer than "
+                         f"the {process_count()} ranks")
+    mine = range(process_index(), nb, process_count())
 
     def eval_once(step):
         sums, scalar_sums = {}, {}
-        for ib, vb in zip(idx, valid):
-            per, scalars, _ = eval_step(state, X[ib])
+        for i in mine:
+            per, scalars, _ = eval_step(state, X[idx[i]])
             for k, v in per.items():
-                sums[k] = sums.get(k, 0.0) + torch.where(vb, v, 0.0).sum()
+                sums[k] = sums.get(k, 0.0) + torch.where(valid[i], v, 0.0).sum()
             for k, v in scalars.items():
                 scalar_sums[k] = scalar_sums.get(k, 0.0) + v
+        if initialized():  # every rank holds a batch, so the same keys
+            keys = sorted(sums) + sorted(scalar_sums)
+            got = {**sums, **scalar_sums}
+            total = dict(zip(keys, all_reduce_(torch.stack(
+                [torch.as_tensor(got[k], dtype=torch.float64, device=dev) for k in keys]))))
+            sums = {k: total[k] for k in sums}
+            scalar_sums = {k: total[k] for k in scalar_sums}
         out = {k: float(v) / N for k, v in sums.items()}
         out.update({k: float(v) / nb for k, v in scalar_sums.items()})
         out["recons_loss.time"] = out["recons_loss.LF.time"] + out["recons_loss.HF.time"]

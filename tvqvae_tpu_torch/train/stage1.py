@@ -6,6 +6,13 @@ Port of ``tvqvae_tpu/train/stage1.py``. One step: forward in train mode
 advanced: BatchNorm running statistics (in the modules) and the two
 codebooks (one EMA step each, from the VQ kernel's counts and row sums).
 
+Inside a ``torch.distributed`` process group each rank steps on its slice
+of the global batch; the BatchNorm and VQ statistics are the global batch's
+(``models/layers.py``, ``models/vq.py``) and the gradients are averaged
+over the ranks before AdamW (``parallel.all_reduce_grads``), so W ranks take
+one process's step over the whole batch; the metrics stay per rank (their
+mean over the ranks is the global value: ``parallel.all_reduce_metrics``).
+
 JAX's step is a pure function of the state; here the state holds the model
 and optimizer, which the step updates in place. Metrics stay on the device
 as 0-dim tensors: reading one waits for the device.
@@ -18,6 +25,7 @@ import torch
 
 from tvqvae_tpu_torch.models.stage1 import Stage1Model, stage1_losses
 from tvqvae_tpu_torch.models.vq import CodebookState
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_grads
 
 
 @dataclass
@@ -51,6 +59,7 @@ def make_stage1_train_step() -> Callable:
         total, metrics = stage1_losses(out)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        all_reduce_grads(state.model.parameters())
         state.optimizer.step()
         state.scheduler.step()
         state.vq_l, state.vq_h = out.vq_l.state, out.vq_h.state

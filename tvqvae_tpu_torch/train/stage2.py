@@ -12,6 +12,11 @@ encodes each batch inside the step instead. The encode draws nothing from
 the generator, so from the same generator state the two steps make the
 same update.
 
+Inside a ``torch.distributed`` process group each rank steps on its slice;
+the HF prior's BatchNorm statistics, the masked cross-entropies'
+denominators (``masked_ce``) and the averaged gradients
+(``parallel.all_reduce_grads``) are the global batch's.
+
 JAX's step is a pure function of the state; here the state holds the two
 priors and the optimizer, which the step updates in place (the HF prior's
 BatchNorm buffers are JAX's ``h_stats``). Metrics stay on the device as
@@ -39,6 +44,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     random_mask_tokens,
 )
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_grads
 from tvqvae_tpu_torch.utils.convert import prior_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
@@ -107,6 +113,7 @@ def stage2_train_step_tokens(state: Stage2TrainState, s_l: torch.Tensor, s_h: to
     loss = ce_l + ce_h
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads([*state.t_l.parameters(), *state.t_h.parameters()])
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

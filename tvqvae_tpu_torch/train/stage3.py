@@ -19,6 +19,10 @@ Gumbel draws instead (the parity tests pass JAX's). The state holds the
 enhancer and its optimizer, which the step updates in place; metrics stay
 on the device as 0-dim tensors.
 
+Inside a ``torch.distributed`` process group each rank steps on its slice
+and the gradients are averaged over the ranks before AdamW
+(``parallel.all_reduce_grads``); the enhancer's GroupNorms are per series.
+
 With ``percept_loss_weight`` w > 0 (0 in the published config) the loss is
 L1 + w mean((percept_fn(FE(x')) - percept_fn(x))^2), ``percept_fn`` being
 e.g. a fitted ``evaluation.MiniRocket``. Its PPV features are a hard
@@ -36,6 +40,7 @@ import torch
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import FrozenStage1, decode_tokens, encode_tokens
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_grads
 from tvqvae_tpu_torch.utils.device import resolve_device
 
 Metrics = Dict[str, torch.Tensor]
@@ -98,6 +103,7 @@ def _fe_update(state: Stage3TrainState, x: torch.Tensor, xprime: torch.Tensor,
     loss = recons + percept
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads(state.fe.parameters())
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

@@ -16,6 +16,11 @@ A snapshot (``save_train_state``) is the port's own format: a
 ``torch.save`` payload of state dicts, optimizer and scheduler states, the
 step and the generator state, read back with ``weights_only=True``. The JAX
 package's msgpack of optax states is neither read nor written.
+
+Inside a ``torch.distributed`` process group (``parallel/``) every saved
+tree is replicated, so, as in the JAX package, the primary rank alone writes
+and every rank calls the writer and waits at a barrier until the file is in
+place; any rank may then read it.
 """
 
 import json
@@ -25,6 +30,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from tvqvae_tpu_torch.parallel.mesh import barrier, is_primary
 
 SEP = "/"
 
@@ -70,14 +77,18 @@ def _write_npz(f, flat: Mapping[str, np.ndarray]) -> None:
 
 def save_checkpoint(path: str, tree: Mapping, meta: Optional[dict] = None) -> None:
     """Write ``tree`` (nested mappings of arrays) to ``path`` and, when given,
-    ``meta`` to ``path + ".meta.json"``."""
+    ``meta`` to ``path + ".meta.json"``; the primary rank writes, every
+    rank waits."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    flat = dict(_flatten(tree))
-    _replace_into(path, lambda f: _write_npz(f, flat))
-    if meta is not None:
-        _replace_into(path + ".meta.json",
-                      lambda f: f.write(json.dumps(meta, indent=2, default=_json_default).encode()))
+    if is_primary():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        flat = dict(_flatten(tree))
+        _replace_into(path, lambda f: _write_npz(f, flat))
+        if meta is not None:
+            _replace_into(path + ".meta.json",
+                          lambda f: f.write(json.dumps(meta, indent=2,
+                                                       default=_json_default).encode()))
+    barrier(f"save_checkpoint:{path}")
 
 
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[dict]]:
@@ -108,10 +119,13 @@ def _json_default(o):
 
 def save_train_state(path: str, payload: dict) -> None:
     """Write a full train state (state dicts, optimizer and scheduler
-    states, step, generator state) for an exact resume; synchronous, atomic."""
+    states, step, generator state) for an exact resume; synchronous, atomic.
+    The primary rank writes its ``payload``, every rank waits."""
     path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    _replace_into(path, lambda f: torch.save(payload, f))
+    if is_primary():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        _replace_into(path, lambda f: torch.save(payload, f))
+    barrier(f"save_train_state:{path}")
 
 
 def load_train_state(path: str) -> dict:
