@@ -171,10 +171,21 @@ It needs no JAX and no network. Phases, each fatal on failure:
      feed (bit-equal); (f) ``train_stage1`` in the production recipe
      (cuDNN, AdamW with bfloat16 moments, bfloat16 compute, fast BatchNorm)
      at the published width by the two ranks, three steps: one state on
-     both ranks, finite, two VQ launches a step on each. (b)-(e) under
+     both ranks, finite, two VQ launches a step on each; (g) tensor
+     parallelism (``parallel/tp.py``): the two ranks as a (1, 2) grid take
+     (a)'s three steps on all 32 rows at the published width, the rule's
+     leaves split between them, held to (a)'s one-process reference by
+     (a)'s bounds (and whether bit-equal); then one AdamW step; each rank's
+     ``memory_allocated`` between steps against the shard arithmetic
+     (parameters and gradients with SGD, parameters and both moments with
+     AdamW, 5 %), its peak, the split fraction of the parameter bytes, rank
+     0's step ms; then ``train_stage1(tp=2)`` at (e)'s small config (the
+     floor lowered to 512 elements so that the rule splits its leaves)
+     straight and resumed from its step-2 snapshot (bit-equal), against
+     (e)'s one-process run by Adam's element rule. (b)-(g) under
      deterministic cuDNN. Each rank's VQ launches come back to this process
-     (``launches_by_path.parallel``); the two-rank steps' ms and each
-     rank's peak memory are printed.
+     (``launches_by_path.parallel``, and (g)'s as ``launches_by_path.tp``);
+     the two-rank steps' ms and each rank's peak memory are printed.
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -3488,6 +3499,8 @@ PAR_WORLD, PAR_STEPS, PAR_B1, PAR_B2 = 2, 3, 32, 16
 PAR_FLIPS = 8  # the most HF L1 residual sign flips (a) accepts (the card has seen 1 of 593024)
 PAR_RUN_STEPS, PAR_RUN_B, PAR_RUN_TEST, PAR_RUN_L = 4, 8, 16, 127  # (e): small train_stage1 runs
 PAR_PROD_STEPS = 3  # (f): two-rank steps of the production recipe at the published width
+PAR_TP_FLOOR = 512  # (g)'s runner: the tensor-parallel rule's floor at (e)'s small config
+PAR_TP_MEMORY = 0.05  # (g): memory between steps within 5 % of the shard arithmetic
 PAR_CFG = {"encoder": {"dropout": 0.0}, "decoder": {"dropout": 0.0}, "MaskGIT": {
     f"prior_model_{b}": {"model_dropout": 0.0, "emb_dropout": 0.0, "p_unconditional": 0.0}
     for b in ("l", "h")}}
@@ -3661,17 +3674,17 @@ def par_run_data():
                          y_test=y[32:, None], scaler=None, n_classes=N_CLASSES)
 
 
-def par_run(torch, save_path, device, data_on_device=True) -> dict:
+def par_run(torch, save_path, device, data_on_device=True, tp=1) -> dict:
     """(e): ``train_stage1`` of ``par_run_cfg`` over ``par_run_data`` for
-    PAR_RUN_STEPS steps, writing to ``save_path`` -> {"final": its state on
-    the host, "loss": the logged losses, "val": the validations} (the
-    primary's log; another rank logs nothing)."""
+    PAR_RUN_STEPS steps (with ``tp``), writing to ``save_path`` -> {"final":
+    its state on the host, "loss": the logged losses, "val": the
+    validations} (the primary's log; another rank logs nothing)."""
     from tvqvae_tpu_torch.train.runner import train_stage1
 
     rec = ParRecorder(torch, device == "cuda")
     state = train_stage1(par_run_cfg(), par_run_data(), max_steps=PAR_RUN_STEPS, seed=2,
                          logger=rec, device=device, log_interval=1, save_path=save_path,
-                         data_on_device=data_on_device)
+                         data_on_device=data_on_device, tp=tp)
     return {"final": par_final(state), "loss": [float(v) for v in rec.losses], "val": rec.val}
 
 
@@ -3712,6 +3725,97 @@ def par_production(torch, cfg_dict, length, device) -> dict:
             "finite": all(bool(torch.isfinite(v).all()) for v in final.values()
                           if v.is_floating_point()),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0}
+
+
+def par_tp(torch, cfg, model0, vq_l0, vq_h0, xs, device, out_dir):
+    """(g) in a rank of the two: the ranks as a (1, 2) grid take (a)'s steps
+    with SGD on every row of each global batch in native kernels, the
+    rule's leaves split between them, then one AdamW step; then
+    ``train_stage1(tp=2)`` at (e)'s small config, straight and resumed ->
+    (summary for the parent, the SGD steps' state for rank 0's check against
+    (a)'s reference, on the host: "final", step-1 "grads", "signs")."""
+    import copy
+
+    from tvqvae_tpu_torch.parallel import mesh, tp
+    from tvqvae_tpu_torch.train.stage1 import create_stage1_state, make_stage1_train_step
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    allocated = torch.cuda.memory_allocated if on_card else (lambda: 0)
+    sync()
+    base = allocated()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out, seen, signs, events, grads = {}, [], [], [], None
+    with tp.make_mesh2d(1, PAR_WORLD), torch.backends.cudnn.flags(enabled=False), \
+            deterministic_algorithms(torch):
+        state = create_stage1_state(copy.deepcopy(model0), vq_l0, vq_h0, par_sgd(cfg))
+        tp.shard_train_state_tp(state)
+        model = state.model
+        local = sum(p.numel() * p.element_size() for p in model.parameters())
+        whole = sum(p.numel() * p.element_size() * (p.tp_shard.count if hasattr(p, "tp_shard")
+                                                    else 1) for p in model.parameters())
+        out.update(fraction=tp.sharded_fraction(model), local_bytes=local, whole_bytes=whole,
+                   split_leaves=sum(hasattr(p, "tp_shard") for p in model.parameters()))
+
+        def hook(m, i, o):
+            seen.append((o.vq_l.indices.cpu(), o.vq_h.indices.cpu()))
+            if not signs:
+                signs.append(torch.sign(o.x_h - o.xhat_h).detach().to(torch.int8).cpu())
+
+        model.register_forward_hook(hook)
+        step = make_stage1_train_step()
+        losses = []
+        for x in xs:  # the batch is split over the data index alone: all rows on each rank
+            _, m = step(state, torch.from_numpy(np.ascontiguousarray(x)).to(device))
+            losses.append(m["loss"])
+            if grads is None:
+                grads = {k: tp.full_tensor(p, p.grad).cpu() for k, p in model.named_parameters()}
+            if on_card:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+        sync()
+        out["sgd_bytes"] = allocated() - base  # the slices and their gradients
+        with tp.gathered(model):  # (a)'s state after the steps, whole, on the host
+            final = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        for band, cb in (("vq_l", state.vq_l), ("vq_h", state.vq_h)):
+            for f in ("embed", "embed_avg", "cluster_size", "initted"):
+                final[f"{band}.{f}"] = getattr(cb, f).to("cpu", copy=True)
+        out["sums"] = par_leaf_sums(final)
+        out.update(loss=[float(v) for v in losses], indices=seen)
+        state.optimizer, state.scheduler = par_tx(cfg)(model.parameters())
+        step(state, torch.from_numpy(np.ascontiguousarray(xs[-1])).to(device))
+        state.optimizer.zero_grad(set_to_none=True)
+        sync()
+        out["adam_bytes"] = allocated() - base  # the slices and both moments
+        out["moments_sliced"] = all(
+            state.optimizer.state[p][k].shape == p.shape for p in model.parameters()
+            if hasattr(p, "tp_shard") for k in ("exp_avg", "exp_avg_sq"))
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+        out["ms"] = (events[0].elapsed_time(events[-1]) / (len(events) - 1)) if on_card else None
+        del state, model
+    # the runner: tp=2 over the two ranks, straight, then its step-2 snapshot resumed
+    path = os.path.join(out_dir, "tp", "stage1")
+    floor, tp.MIN_SHARD_ELEMS = tp.MIN_SHARD_ELEMS, PAR_TP_FLOOR
+    try:
+        with deterministic_algorithms(torch):
+            full = par_run(torch, path, device, tp=PAR_WORLD)
+            mesh.barrier("par-tp-run")
+            if mesh.is_primary():
+                os.remove(path)
+                os.remove(path + ".meta.json")
+            mesh.barrier("par-tp-resume")
+            resumed = par_run(torch, path, device, tp=PAR_WORLD)
+    finally:
+        tp.MIN_SHARD_ELEMS = floor
+    for k, v in full["final"].items():
+        check(torch.equal(v, resumed["final"][k]),
+              f"[parallel] (g) tp=2 run: {k} after the resume differs from the straight run")
+    check(resumed["loss"] == full["loss"][PAR_RUN_STEPS // 2:],
+          f"[parallel] (g) tp=2 resumed losses {resumed['loss']} against {full['loss']}")
+    out["run"] = {"final": full["final"], "sums": par_leaf_sums(full["final"]),
+                  "loss": full["loss"], "val": full["val"]}
+    return out, {"final": final, "grads": grads, "signs": signs[0]}
 
 
 def check_adam_elements(label, ref, dut, cancelled, noise) -> dict:
@@ -3913,6 +4017,12 @@ def parallel_rank_work(torch, dist, rank, world, ports, out_dir, cfg, spec, xs1,
     vq_kernel.launch_count = 0
     res["f"] = par_production(torch, cfg_dict, length, device)
     launches["f"] = vq_kernel.launch_count
+    # (g): tensor parallelism, the two ranks as a (1, 2) grid
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    res["g"], g_state = par_tp(torch, cfg, model0, vq_l0, vq_h0, xs1, device, out_dir)
+    res["g_seconds"] = time.perf_counter() - t0
+    launches["g"] = vq_kernel.launch_count
     dist.destroy_process_group()
     del frozen
     if rank == 0:
@@ -3931,7 +4041,19 @@ def parallel_rank_work(torch, dist, rank, world, ports, out_dir, cfg, spec, xs1,
                                            spec.vq_l.eps)
         res["a_check"]["HF L1 residual sign flips"] = flips
         print(f"[parallel] rank 0, (a) against one process: {res['a_check']}", flush=True)
-        del ref, a
+        # (g)'s steps on all 32 rows against the same one-process reference
+        flips = int((g_state["signs"] != ref["signs"].cpu()).sum())
+        check(flips <= PAR_FLIPS, f"[parallel] (g) the HF L1 residual changed sign at {flips} "
+                                  f"elements, more than {PAR_FLIPS}")
+        res["g_check"] = check_stage1_pair(torch, "[parallel] (g) tp=2 steps", ref, g_state,
+                                           cancelled, flips / signs.numel() ** 0.5,
+                                           ref["bound"], spec.vq_l.eps)
+        res["g_check"]["HF L1 residual sign flips"] = flips
+        res["g_check"]["bit-equal"] = all(
+            torch.equal(v, g_state["final"][k].to(v.device)) for k, v in ref["final"].items()) \
+            and all(torch.equal(v.cpu(), g_state["grads"][k]) for k, v in ref["grads"].items())
+        print(f"[parallel] rank 0, (g) against one process: {res['g_check']}", flush=True)
+        del ref, a, g_state
         vq_kernel.launch_count = 0  # (c): one step with no process group, then in one of NCCL
         with deterministic_algorithms(torch):
             ref_c = par_stage1(torch, cfg, model0, vq_l0, vq_h0, xs1[:1], slice(None), device)
@@ -3977,7 +4099,7 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
     the numbers printed beside ``smi`` (the card's name and power limit).
     ``cfg_dict`` and ``length`` (default ``PAR_CFG`` and ``L``) size a
     rehearsal on the CPU. -> the VQ kernel launches of the phase (every
-    process's)."""
+    process's): those of (a)-(f), and those of (g)."""
     import copy
 
     import torch.multiprocessing as mp
@@ -4146,9 +4268,43 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
     check(f0["finite"] and ranks[1]["f"]["finite"] and all(np.isfinite(f0["loss"])),
           f"[parallel] (f) non-finite state or losses {f0['loss']}")
 
+    nb = PAR_RUN_TEST // PAR_RUN_B  # (e)'s validation batches
+    # (g): the (1, 2) grid's steps against (a)'s reference (rank 0 held the
+    # state), the shard arithmetic of memory, the tp=2 run against (e)'s one process
+    for rk in ranks:
+        g_ = rk["g"]
+        for t in range(PAR_STEPS):
+            for band in (0, 1):
+                check(torch.equal(g_["indices"][t][band], ref_a["indices"][t][band]),
+                      f"[parallel] (g) tp=2 step {t + 1}: band {band} indices differ")
+        g_gap = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(g_["loss"], ref_a["loss"]))
+        check(g_gap <= 1e-4, f"[parallel] (g) tp=2 losses {g_['loss']} vs {ref_a['loss']}")
+        check(g_["fraction"] > 0.25 and g_["moments_sliced"],
+              f"[parallel] (g) split {g_['fraction']}, moments sliced {g_['moments_sliced']}")
+        for kind, n in (("sgd_bytes", 2), ("adam_bytes", 3)):
+            want = n * g_["local_bytes"]
+            check(device != "cuda" or abs(g_[kind] - want) <= PAR_TP_MEMORY * want,
+                  f"[parallel] (g) {kind} {g_[kind]} against {n} x {g_['local_bytes']}")
+    g0 = ranks[0]["g"]
+    check(g0["sums"] == ranks[1]["g"]["sums"], "[parallel] (g) the ranks' states differ")
+    check(g0["run"]["sums"] == ranks[1]["g"]["run"]["sums"],
+          "[parallel] (g) the tp=2 run's ranks differ")
+    tp_worst = check_adam_elements(
+        "[parallel] (g) tp=2 run against one process", one["final"], g0["run"]["final"],
+        biases_cancelled_by_batchnorm(Stage1Model(run_spec)), run_noise)
+    tp_bit = all(torch.equal(v, g0["run"]["final"][k]) for k, v in one["final"].items())
+    tp_loss = max(abs(a_ - b_) / abs(b_) for a_, b_ in zip(g0["run"]["loss"], one["loss"]))
+    check(tp_loss <= 1e-4, f"[parallel] (g) tp=2 run losses {g0['run']['loss']} against "
+                           f"{one['loss']}")
+    tp_launches = sum(rk["launches"].pop("g") for rk in ranks)
+    tp_rank = (2 * (PAR_STEPS + 1)  # the grid's SGD steps and its AdamW step
+               + 2 * (PAR_RUN_STEPS + PAR_RUN_STEPS // 2)  # the run, straight then resumed
+               + 2 * (PAR_RUN_STEPS // 2 + 1) * nb)  # 3 validations, every batch on each rank
+    check(device != "cuda" or tp_launches == PAR_WORLD * tp_rank,
+          f"[parallel] (g) VQ launches {tp_launches}, expected {PAR_WORLD * tp_rank}")
+
     launches = (parent_launches + run_launches
                 + sum(sum(rk["launches"].values()) for rk in ranks))
-    nb = PAR_RUN_TEST // PAR_RUN_B  # validation batches, split over the ranks
     run_rank = (2 * (PAR_RUN_STEPS + PAR_RUN_STEPS // 2)  # straight, then resumed at step 2
                 + 2 * (PAR_RUN_STEPS // 2 + 1) * nb // PAR_WORLD)  # 2 + 1 validations
     for rk in ranks:
@@ -4208,7 +4364,28 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
           f"launches {launches} (ranks {[rk['launches'] for rk in ranks]}, this process "
           f"{parent_launches} + {run_launches}); {time.perf_counter() - t_start:.1f} s",
           flush=True)
-    return launches
+    wg = ranks[0]["g_check"]
+    gb = [(rk["g"]["sgd_bytes"] / 1e9, rk["g"]["adam_bytes"] / 1e9, rk["g"]["peak_bytes"] / 1e9)
+          for rk in ranks]
+    print(f"[parallel] {smi} | (g) tensor parallelism, the {PAR_WORLD} ranks as a (1, "
+          f"{PAR_WORLD}) grid: {g0['split_leaves']} leaves, {100 * g0['fraction']:.2f}% of the "
+          f"parameter bytes, split; {PAR_STEPS} published-width stage-1 steps on all {PAR_B1} "
+          f"rows (SGD, native kernels, deterministic algorithms) against (a)'s one process: "
+          f"indices equal; bit-equal {wg['bit-equal']}; step-1 gradients within {wg['grad']:.3g} "
+          f"of each leaf's scale (HF sign flips {wg['HF L1 residual sign flips']}); leaves "
+          f"within {wg['leaf']:.3g}; codebooks at most {wg['codebook bound share']:.3g} of their "
+          f"bounds; memory_allocated between steps by rank (GB: SGD parameters + gradients, "
+          f"AdamW parameters + moments, peak) {[tuple(round(v, 3) for v in b) for b in gb]} "
+          f"against 2 x and 3 x {g0['local_bytes'] / 1e9:.3f} GB of local parameters (one "
+          f"process: {g0['whole_bytes'] / 1e9:.3f} GB of parameters, "
+          f"{3 * g0['whole_bytes'] / 1e9:.3f} GB with AdamW's moments); rank 0's step "
+          f"{g0['ms'] or 0.0:.1f} ms (CUDA events, steps 2-{PAR_STEPS}; the weights gathered "
+          f"through the host by gloo, not a scaling rate), {ranks[0]['g_seconds']:.1f} s for "
+          f"(g); train_stage1(tp={PAR_WORLD}) at (e)'s config (floor {PAR_TP_FLOOR}): resumed "
+          f"bit-equal to the straight run; against (e)'s one process: bit-equal {tp_bit}, "
+          f"leaves within {tp_worst['leaf']:.3g}, losses {tp_loss:.3g} relative; VQ launches "
+          f"{tp_launches}", flush=True)
+    return launches, tp_launches
 
 
 def analysis_phase(torch, work, figures, device="cuda"):
@@ -4437,7 +4614,7 @@ def smoke(torch, work, t_start):
     lap("preprocess")
     import_launches = import_phase(torch, vq_kernel, work)
     lap("import")
-    parallel_launches = parallel_phase(torch, vq_kernel, work, smi)
+    parallel_launches, tp_launches = parallel_phase(torch, vq_kernel, work, smi)
     lap("parallel")
 
     # ---- the checkpoints: served and generated from disk, counted -----
@@ -4523,13 +4700,14 @@ def smoke(torch, work, t_start):
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
                      + eval_launches + bf16_launches + ess_launches + quality_launches
                      + preprocess_launches + import_launches + parallel_launches
-                     + ckpt_launches),
+                     + tp_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
                              "ess": ess_launches, "quality": quality_launches,
                              "preprocess": preprocess_launches, "import": import_launches,
-                             "parallel": parallel_launches, "ckpt": ckpt_launches},
+                             "parallel": parallel_launches, "tp": tp_launches,
+                             "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

@@ -269,6 +269,29 @@ def port_runner(workdir):
             "bn": _bn_stats(full.model)}
 
 
+def grid_eval_state():
+    """A seeded stage-1 state of ``runner_cfg`` for the grid validation."""
+    from tvqvae_tpu_torch.models.stage1 import init_stage1
+
+    model, vq_l, vq_h = init_stage1(Stage1Spec.from_config(runner_cfg(), L, C),
+                                    torch.Generator().manual_seed(9), "cpu")
+    return create_stage1_state(model, vq_l, vq_h, _tx())
+
+
+def port_grid_eval():
+    """``runner._make_eval`` by both ranks as a (1, 2) grid, the state's big
+    weights split over them: both ranks run every batch (gathering the
+    weights together) and reduce over their one-rank data group."""
+    from tvqvae_tpu_torch.parallel import tp
+
+    state = grid_eval_state()
+    with tp.make_mesh2d(1, 2):
+        tp.shard_train_state_tp(state, min_elems=512)
+        fraction = tp.sharded_fraction(state.model)
+        val = runner._make_eval(state, runner_data().X_test, G, torch.device("cpu"))(0)
+    return {"val": val, "fraction": fraction}
+
+
 CASES = ("vq", "s1_flax", "s1_fast", "s2", "s3_0", "s3_tau", "fcn")
 
 
@@ -286,6 +309,7 @@ def worker(rank: int, world: int, port: int, workdir: str) -> None:
            "s3_0": port_stage3, "s3_tau": port_stage3, "fcn": port_fcn}
     out = {name: fns[name](cases[name]) for name in CASES}
     out["runner"] = port_runner(workdir)
+    out["grid_eval"] = port_grid_eval()
     with open(os.path.join(workdir, f"out{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -770,6 +794,26 @@ def test_primary_alone_writes_and_the_barrier_holds(ranks):
     # the BatchNorm running statistics are equal on both ranks
     for k, v in r0["bn"].items():
         assert torch.equal(v, r1["bn"][k]), k
+
+
+def test_validation_under_a_grid_equals_one_process(ranks):
+    """Under a (1, 2) grid (``parallel/tp.py``) the two ranks hold one slice
+    of the batch: each runs every validation batch and sums over its data
+    group alone, so the totals are one process's, not twice them."""
+    _, outs, _, _ = ranks
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = runner._make_eval(grid_eval_state(), runner_data().X_test, G,
+                                torch.device("cpu"))(0)
+    finally:
+        torch.set_num_threads(n)
+    for o in outs:
+        got = o["grid_eval"]
+        assert got["fraction"] > 0.25
+        assert set(got["val"]) == set(one) and len(one) == 6
+        for k, v in one.items():
+            assert got["val"][k] == pytest.approx(v, rel=1e-6), k
 
 
 # ---------------------------------------------------------------------------

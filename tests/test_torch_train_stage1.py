@@ -578,10 +578,16 @@ def test_train_stage1_on_cpu_learns_and_validates(tiny_data):
     {"bf16_nu": True}, {"bf16_head": True}, {"bf16_istft": True}, {"tp": 2}, {"rng_impl": "rbg"},
 ])
 def test_train_stage1_refuses_unported_options(tiny_data, flag):
-    """Step bundles, tensor parallelism and the RNG implementation raise; the
-    precision and remat options run, and reach the spec or the optimizer."""
+    """Step bundles and the RNG implementation raise; tensor parallelism runs
+    where the world divides by ``tp`` (``tests/test_torch_tp.py``) and one
+    process is refused ``tp`` = 2 as JAX refuses it; the precision and remat
+    options run, and reach the spec or the optimizer."""
     (name, value), = flag.items()
-    if name in ("bundle_steps", "tp", "rng_impl"):
+    if name == "tp":
+        with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
+            runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
+        return
+    if name in ("bundle_steps", "rng_impl"):
         with pytest.raises(NotImplementedError, match=name):
             runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
         return

@@ -65,8 +65,9 @@ class WSConv1d(Conv1d):
     def forward(self, x):
         dt = self.compute_dtype
         eps = 1e-5 if dt in (None, torch.float32) else 1e-3
-        var, mean = torch.var_mean(self.weight, dim=(1, 2), keepdim=True, correction=0)
-        w = (self.weight - mean) * torch.rsqrt(var + eps)
+        w = self.weight  # read once: a tensor-parallel weight is gathered at every read
+        var, mean = torch.var_mean(w, dim=(1, 2), keepdim=True, correction=0)
+        w = (w - mean) * torch.rsqrt(var + eps)
         return self._functional(cast_to(x, dt), cast_to(w, dt), cast_to(self.bias, dt))
 
 

@@ -63,7 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tvqvae_tpu_torch.ops.snake import snake
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_sum, process_count, process_index
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_sum, data_count, data_index
 
 
 def cast_dtype(name) -> Optional[torch.dtype]:
@@ -130,8 +130,9 @@ class Snake(nn.Module):
 class _FlaxTrainStatistics:
     """Train mode of a torch BatchNorm with flax's statistics (eps 1e-5);
     with ``fast``, the JAX package's fast BatchNorm in train and eval mode.
-    Inside a process group of more than one rank the train statistics are
-    the global batch's (``_global_moments``), in both modes."""
+    When the batch is split over more than one rank (its data group) the
+    train statistics are the global batch's (``_global_moments``), in both
+    modes."""
 
     MOMENTUM = 0.9  # flax convention: the weight of the old running value
 
@@ -146,7 +147,7 @@ class _FlaxTrainStatistics:
         if not self.training:
             return super().forward(x)
         dims = (0, *range(2, x.dim()))
-        if process_count() > 1:
+        if data_count() > 1:
             var, mean = torch.var_mean(x.to(stats_dtype(x)), dim=dims, correction=0)
             mean, var = self._global_moments(mean, var)
             self._update_running(mean, var)
@@ -175,7 +176,7 @@ class _FlaxTrainStatistics:
             dims = (0, *range(2, x.dim()))
             mean = xf.mean(dims)
             var = xf.square().mean(dims) - mean.square()
-            if process_count() > 1:
+            if data_count() > 1:
                 mean, var = self._global_moments(mean, var)
             if not self.recomputing:
                 with torch.no_grad():
@@ -193,14 +194,14 @@ class _FlaxTrainStatistics:
     def _global_moments(mean, var):
         """This rank's per-channel mean and biased variance of its rows ->
         the global batch's, as GSPMD gives them, differentiable: one
-        all-reduce of a (W, 2, C) tensor holding each rank's row (so every
-        rank reads all of them), whose backward sums their gradients over
-        the ranks, so the step differentiates through the global statistics;
-        then mean = mean_r(m_r) and var = mean_r(v_r) + mean_r((m_r -
+        all-reduce over the data group of a (W, 2, C) tensor holding each
+        slice's row (so every rank reads all of them), whose backward sums
+        their gradients over the group, so the step differentiates through
+        the global statistics; then mean = mean_r(m_r) and var = mean_r(v_r) + mean_r((m_r -
         mean)^2) over the equal slices (the law of total variance), which
         keeps the per-rank formula's conditioning where E[x^2] - E[x]^2 over
         global sums would lose digits wherever |mean| >> std."""
-        W, r = process_count(), process_index()
+        W, r = data_count(), data_index()
         mine = torch.stack([mean, var])[None]
         rows = torch.cat([mine.new_zeros((r, *mine.shape[1:])), mine,
                           mine.new_zeros((W - r - 1, *mine.shape[1:]))])

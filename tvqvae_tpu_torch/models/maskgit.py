@@ -43,7 +43,7 @@ from tvqvae_tpu_torch.config import Config
 from tvqvae_tpu_torch.models.stage1 import Stage1Model, Stage1Spec
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
 from tvqvae_tpu_torch.models.vq import CodebookState, gumbel, lookup_codes, vq_forward
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_, initialized, process_count
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_, data_count, initialized
 
 
 def gamma_fn(mode: str = "cosine") -> Callable[[np.ndarray], np.ndarray]:
@@ -183,9 +183,9 @@ def masked_ce(logits: torch.Tensor, targets: torch.Tensor, keep: torch.Tensor) -
     positions only; 0 where no position is masked.
 
     Inside a process group the average is the global batch's, Σ(nll·w) /
-    max(Σw, 1) with both sums over every rank: each rank returns W times its
-    share of it, W·Σ_local(nll·w) / max(Σw, 1), so the mean over the ranks,
-    of the values and of the gradients (``parallel.all_reduce_grads``), is
+    max(Σw, 1) with both sums over the data group (W slices): each rank
+    returns W times its share of it, W·Σ_local(nll·w) / max(Σw, 1), so the
+    mean over the ranks, of the values and of the gradients (``parallel.all_reduce_grads``), is
     the global one. A mean of per-rank means would weigh a rank that masks
     few tokens like one that masks many."""
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -194,7 +194,7 @@ def masked_ce(logits: torch.Tensor, targets: torch.Tensor, keep: torch.Tensor) -
     if not initialized():
         return (nll * w).sum() / w.sum().clamp_min(1.0)
     denom = all_reduce_(w.sum().detach())
-    return process_count() * (nll * w).sum() / denom.clamp_min(1.0)
+    return data_count() * (nll * w).sum() / denom.clamp_min(1.0)
 
 
 # --------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from tvqvae_tpu_torch.ops.vq_kernel import nearest_codes_stats
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_, initialized, process_count
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_, data_count, initialized
 
 
 @dataclass(frozen=True)
@@ -177,10 +177,10 @@ def vq_forward(
 
     rows = flat.shape[0]
     if train and initialized():
-        # the batch is sharded over the ranks: the EMA statistics are the
-        # global batch's, as JAX's sum(0) over the sharded axis gives them
+        # the batch is sharded over the data group: the EMA statistics are
+        # the global batch's, as JAX's sum(0) over the sharded axis gives them
         counts, embed_sum = all_reduce_(counts.detach()), all_reduce_(embed_sum.detach())
-        rows *= process_count()
+        rows *= data_count()
 
     quantized = state.embed[indices.long()]  # the pre-update codebook
 

@@ -31,6 +31,16 @@ them equal.
 Both backends take CUDA tensors: gloo reduces them through pinned host
 copies (two ranks that share one card cannot use NCCL, which refuses a
 device held by two ranks), NCCL on the devices.
+
+Under a (data, model) grid (``parallel/tp.py``, active while its ``Mesh2D``
+is entered) the batch is split over the *data* index alone: ``data_index``
+and ``data_count`` take the place of ``process_index`` and
+``process_count`` in ``shard_bounds``, ``shard_batch`` and every reduction
+over the batch, and the reductions (``all_reduce_``, ``all_reduce_sum``,
+``all_reduce_metrics``, ``all_gather_object``) run over the rank's data
+group unless given another group. Without a grid the data group is the
+world and the data index the rank. ``broadcast_``, ``replicate_`` and
+``barrier`` stay over the world.
 """
 
 import queue
@@ -42,6 +52,9 @@ import torch
 import torch.distributed as dist
 
 GRAD_BUCKET = 1 << 24  # elements per gradient all-reduce (64 MB of float32)
+
+
+_GRID = None  # the active (data, model) grid: a ``tp.Mesh2D``, or None
 
 
 def initialized() -> bool:
@@ -56,6 +69,41 @@ def process_count() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
+def set_grid(grid):
+    """Make ``grid`` (a ``tp.Mesh2D``, or None) the active grid; -> the one
+    it replaces."""
+    global _GRID
+    prev, _GRID = _GRID, grid
+    return prev
+
+
+def grid():
+    """The active (data, model) grid, or None."""
+    return _GRID
+
+
+def data_group():
+    """The ranks that hold the other slices of this rank's batch: the active
+    grid's data group, else the world (None, torch.distributed's default)."""
+    return None if _GRID is None else _GRID.data_group
+
+
+def data_index() -> int:
+    """This rank's slice of the global batch: its data index under a grid,
+    else its rank."""
+    return process_index() if _GRID is None else _GRID.data_index
+
+
+def data_count() -> int:
+    """How many slices the global batch is split into: the grid's data
+    size, else the world's."""
+    return process_count() if _GRID is None else _GRID.n_data
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group)
+
+
 def is_primary() -> bool:
     """True on the rank that writes files and prints (rank 0)."""
     return process_index() == 0
@@ -68,15 +116,17 @@ def barrier(tag: str = "") -> None:
         dist.barrier()
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` in place over the ranks (``"sum"`` or ``"mean"``); -> t."""
+def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """Reduce ``t`` in place over ``group`` (default: the data group) by
+    ``"sum"`` or ``"mean"``; -> t."""
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be 'sum' or 'mean', not {op!r}")
     if not initialized():
         return t
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    group = data_group() if group is None else group
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     if op == "mean":
-        t /= process_count()
+        t /= _size(group)
     return t
 
 
@@ -88,9 +138,9 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = Σ_ranks x. The gradient of the ranks' summed losses with respect
-    to one rank's x is the sum over the ranks of their gradients with
-    respect to y, so the backward is an all-reduce as well."""
+    """y = Σ_ranks x over the data group. The gradient of the ranks' summed
+    losses with respect to one rank's x is the sum over the ranks of their
+    gradients with respect to y, so the backward is an all-reduce as well."""
 
     @staticmethod
     def forward(ctx, x):
@@ -102,8 +152,8 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Σ over the ranks of ``x``, differentiable; ``x`` itself without a
-    process group."""
+    """Σ over the data group of ``x``, differentiable; ``x`` itself without
+    a process group."""
     return _AllReduceSum.apply(x) if initialized() else x
 
 
@@ -118,14 +168,26 @@ def replicate_(*modules: torch.nn.Module) -> None:
                 broadcast_(t.data)
 
 
-def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Average the gradients of ``params`` over the ranks, in buckets of up
-    to ``GRAD_BUCKET`` elements of one dtype and device. A parameter without
-    a gradient counts as a zero gradient (as AdamW and optax treat it), so
-    every rank reduces the same buckets."""
+def all_reduce_grads(params: Iterable[torch.nn.Parameter], group=None) -> None:
+    """Average the gradients of ``params`` over ``group`` (default: the data
+    group), in buckets of up to ``GRAD_BUCKET`` elements of one dtype and
+    device. A parameter without a gradient counts as a zero gradient (as
+    AdamW and optax treat it), so every rank reduces the same buckets.
+
+    Under a grid with no ``group`` given, a parameter split over the model
+    group (``tp.py``: it carries ``tp_shard``) averages over the data group,
+    which holds the same slice, and a replicated one over every rank: the
+    ranks of a model group compute its gradient from the same rows, and the
+    world's mean keeps their copies one where a kernel is not deterministic."""
     if not initialized():
         return
     params = [p for p in params if p.requires_grad]
+    if group is None and _GRID is not None:
+        split = [getattr(p, "tp_shard", None) is not None for p in params]
+        all_reduce_grads([p for p, s in zip(params, split) if s], _GRID.data_group)
+        all_reduce_grads([p for p, s in zip(params, split) if not s], dist.group.WORLD)
+        return
+    group = data_group() if group is None else group
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -135,7 +197,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
                                      or (p.dtype, p.device) != (bucket[0].dtype, bucket[0].device))):
             if bucket:
                 flat = torch.cat([q.grad.reshape(-1) for q in bucket])
-                all_reduce_(flat, "mean")
+                all_reduce_(flat, "mean", group)
                 for q, g in zip(bucket, flat.split([q.numel() for q in bucket])):
                     q.grad.copy_(g.view_as(q))
             bucket, n = [], 0
@@ -145,7 +207,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
 
 
 def all_reduce_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The mean over the ranks of each 0-dim metric, in one collective.
+    """The mean over the data group of each 0-dim metric, in one collective.
     The steps return per-rank values whose mean is the global one (means
     over equal slices, and ``masked_ce``'s scaled share)."""
     if not initialized() or not metrics:
@@ -156,21 +218,24 @@ def all_reduce_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
     return dict(zip(keys, flat.unbind()))
 
 
-def all_gather_object(obj) -> list:
-    """Every rank's ``obj`` (picklable), in rank order."""
+def all_gather_object(obj, group=None) -> list:
+    """Every ``obj`` (picklable) of ``group`` (default: the data group), in
+    rank order: under a grid one per data index."""
     if not initialized():
         return [obj]
-    out = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    group = data_group() if group is None else group
+    out = [None] * _size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
 def shard_bounds(batch_size: int, index: Optional[int] = None,
                  count: Optional[int] = None) -> slice:
-    """The rows of a global batch of ``batch_size`` that rank ``index`` of
-    ``count`` holds: its contiguous ``batch_size / count`` slice."""
-    index = process_index() if index is None else index
-    count = process_count() if count is None else count
+    """The rows of a global batch of ``batch_size`` that slice ``index`` of
+    ``count`` (default: this rank's data index and count) holds: its
+    contiguous ``batch_size / count`` slice."""
+    index = data_index() if index is None else index
+    count = data_count() if count is None else count
     if batch_size % count:
         raise ValueError(f"global batch {batch_size} not divisible by {count} processes")
     per = batch_size // count
@@ -178,8 +243,8 @@ def shard_bounds(batch_size: int, index: Optional[int] = None,
 
 
 def shard_batch(batch, index: Optional[int] = None, count: Optional[int] = None):
-    """This rank's contiguous slice of a global batch: a tensor, an array,
-    or a tuple or dict of them (None passes through)."""
+    """This rank's contiguous slice of a global batch (its data index's): a
+    tensor, an array, or a tuple or dict of them (None passes through)."""
     if batch is None:
         return None
     if isinstance(batch, dict):

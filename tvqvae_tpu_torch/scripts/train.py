@@ -27,13 +27,16 @@ the JAX CLI passes them (stage 3 gets ``fast_norm=--fast_bn``);
 ``--host_data`` feeds stage 1 per-step host batches (``data_on_device=False``)
 and ``--no_precompute`` runs the frozen stage 1 inside every step of stages 2
 and 3 (``precompute=False``). The exception is ``--bundle_steps``, 1 here.
-Asking for ``--bundle_steps`` > 1, ``--rbg_rng`` or ``--tp`` > 1 is an error
-naming it and its reason (``runner.REFUSED``).
+Asking for ``--bundle_steps`` > 1 or ``--rbg_rng`` is an error naming it and
+its reason (``runner.REFUSED``).
 
 Data-parallel training: run this CLI in every rank of a ``torch.distributed``
 process group that the launching code initialised (the JAX CLI has no
 launcher flag either; ``train/runner.py`` says what the ranks share). The
-primary rank logs; every rank trains its slice of each global batch.
+primary rank logs; every rank trains its slice of each global batch. With
+``--tp N`` the W ranks train stages 1-3 as a (W / N, N) grid, the big
+parameters and their AdamW moments split over N ranks (``parallel/tp.py``);
+a world that N does not divide is an error.
 """
 
 import argparse
@@ -43,7 +46,7 @@ from pathlib import Path
 from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.evaluation import Metrics
 from tvqvae_tpu_torch.generation import TrainedModelSampler, search_optimal_tau
-from tvqvae_tpu_torch.parallel import is_primary
+from tvqvae_tpu_torch.parallel import is_primary, process_count
 from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
 from tvqvae_tpu_torch.train import runner
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
@@ -98,7 +101,10 @@ def build_argparser():
     p.add_argument("--rbg_rng", action="store_true",
                    help="refused: " + runner.REFUSED["rng_impl"])
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width; > 1 is refused: " + runner.REFUSED["tp"])
+                   help="tensor-parallel width: train over a 2-D (data, model) grid of the "
+                        "ranks with the big parameter leaves and AdamW moments sharded over "
+                        "`model` (parallel/tp.py), for when per-card memory, not batch math, "
+                        "is the constraint. Requires world size %% tp == 0")
     return p
 
 
@@ -122,8 +128,9 @@ def main(argv=None):
     refuse_unported(p, {
         f"--bundle_steps > 1 ({runner.REFUSED['bundle_steps']})": args.bundle_steps > 1,
         f"--rbg_rng ({runner.REFUSED['rng_impl']})": args.rbg_rng,
-        f"--tp > 1 ({runner.REFUSED['tp']})": args.tp > 1,
     })
+    if args.tp > 1 and process_count() % args.tp:
+        p.error(f"{process_count()} devices not divisible by tp={args.tp}")
     dtype = "bfloat16" if args.bf16 else "float32"
     moments = dict(bf16_mu=args.bf16_mu, bf16_nu=args.bf16_nu)
     cfg = load_config(args.config)
@@ -163,6 +170,7 @@ def main(argv=None):
                               feature_extractor_type=fx, fcn_variables=fcn_vars,
                               device=args.device)
     common = dict(max_steps=args.max_steps, seed=args.seed, device=args.device)
+    tp = dict(tp=args.tp)
     for stage in stages:
         log = logger(f"stage{stage}" if stage != "fcn" else "fcn")
         try:
@@ -170,12 +178,13 @@ def main(argv=None):
                 runner.train_stage1(cfg, data, logger=log, save_path=paths["1"],
                                     compute_dtype=dtype, remat=args.remat, fast_bn=args.fast_bn,
                                     bf16_head=args.bf16_head, bf16_istft=args.bf16_istft,
-                                    data_on_device=not args.host_data, **moments, **common)
+                                    data_on_device=not args.host_data, **moments, **tp,
+                                    **common)
             elif stage == "2":
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
                 runner.train_stage2(cfg, data, frozen, logger=log, save_path=paths["2"],
                                     metrics=val_metrics, precompute=not args.no_precompute,
-                                    **moments, **common)
+                                    **moments, **tp, **common)
             elif stage == "3":
                 tau = search_tau(cfg, data, paths, args.device) if args.search_tau else 0.0
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)
@@ -183,7 +192,7 @@ def main(argv=None):
                     cfg, data, frozen, tau=tau, logger=log, save_path=paths["3"],
                     stage2_ckpt=paths["2"] if os.path.exists(paths["2"]) else None,
                     metrics=val_metrics, compute_dtype=dtype, fast_norm=args.fast_bn,
-                    precompute=not args.no_precompute, **moments, **common)
+                    precompute=not args.no_precompute, **moments, **tp, **common)
             elif stage == "fcn":
                 runner.train_fcn(cfg, data, logger=log, seed=args.seed, device=args.device,
                                  save_path=paths["fcn"])

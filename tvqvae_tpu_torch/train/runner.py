@@ -29,6 +29,17 @@ step one process takes over the global batch; rank r draws its dropouts and
 masks from its own generator. The primary rank prints, logs, validates
 stages 2-3 and writes every file; the others wait at a barrier.
 
+Tensor parallelism (``tp`` > 1, ``parallel/tp.py``): the W ranks form a
+(W / tp, tp) grid, as JAX's runner builds its 2-D mesh; W must divide by
+``tp``. The batch is split over the data index alone (the ranks of a model
+group take the same rows and draw the same dropouts and masks: their
+generator is seeded by the data index), and after init and resume the
+stage's big parameters and their AdamW moments are cut to slices over the
+model group (``shard_train_state_tp``, JAX's ``_place_state``); the frozen
+stage 1 of stages 2 and 3 stays whole. Validation runs on every rank of a
+model group together; snapshots and checkpoints hold the full tensors, so
+their layout does not depend on ``tp``, and a run returns its state whole.
+
 Stages 2 and 3 take their frozen stage 1 in memory: ``load_stage1_bundle``
 of a stage-1 checkpoint (as the JAX runner reads it),
 ``FrozenStage1.from_stage1_state`` of a ``train_stage1`` result, or
@@ -52,6 +63,7 @@ from ``stage2_ckpt``'s, raw and through the enhancer being trained (stage
 logged as ``val/running_metrics/{FID,MDD,ACD,SD,KD}[ with FE]``.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -76,12 +88,20 @@ from tvqvae_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     all_reduce_metrics,
     broadcast_,
+    data_count,
+    data_index,
     initialized,
     is_primary,
     prefetch_batches,
     process_count,
-    process_index,
     replicate_,
+)
+from tvqvae_tpu_torch.parallel.tp import (
+    full_optimizer_state,
+    gathered,
+    make_mesh2d,
+    shard_train_state_tp,
+    unshard_train_state_tp,
 )
 from tvqvae_tpu_torch.train.optim import adamw
 from tvqvae_tpu_torch.train.stage1 import (
@@ -207,30 +227,35 @@ def train_state_payload(state, generator: torch.Generator) -> dict:
     """What resumes ``state`` (a stage's train state) exactly: the state dict
     of each module in it, its codebooks, the optimizer's and the schedule's
     states, the step, and the state of the generator the steps draw from:
-    ``generators`` holds every rank's in rank order (each rank draws its own
-    dropouts and masks), so inside a process group every rank calls this
-    together."""
-    payload = {"step": int(state.step), "generators": all_gather_object(generator.get_state()),
-               "optimizer": state.optimizer.state_dict(),
-               "scheduler": state.scheduler.state_dict()}
-    for f in dataclasses.fields(state):
-        v = getattr(state, f.name)
-        if isinstance(v, torch.nn.Module):
-            payload[f.name] = v.state_dict()
-        elif isinstance(v, CodebookState):
-            payload[f.name] = {c.name: getattr(v, c.name) for c in dataclasses.fields(v)}
+    ``generators`` holds one per slice of the batch, in data-index order
+    (each slice draws its own dropouts and masks). Tensor-parallel
+    parameters and moments are written whole (``parallel/tp.py``), so the
+    layout does not depend on ``tp``. Inside a process group every rank
+    calls this together."""
+    modules = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    optimizer = full_optimizer_state(state.optimizer)  # before the parameters are gathered
+    with gathered(*(m for m in modules if isinstance(m, torch.nn.Module))):
+        payload = {"step": int(state.step),
+                   "generators": all_gather_object(generator.get_state()),
+                   "optimizer": optimizer, "scheduler": state.scheduler.state_dict()}
+        for f, v in zip(dataclasses.fields(state), modules):
+            if isinstance(v, torch.nn.Module):
+                payload[f.name] = v.state_dict()
+            elif isinstance(v, CodebookState):
+                payload[f.name] = {c.name: getattr(v, c.name) for c in dataclasses.fields(v)}
     return payload
 
 
 def restore_train_state(state, generator: torch.Generator, payload: dict) -> int:
-    """Load ``train_state_payload``'s payload into a freshly built ``state``
-    of the same shapes (the schedule rebuilt by the caller, then its counter
-    loaded) and into ``generator``, this rank's stream. -> the step it
-    resumes after. A snapshot resumes only with as many ranks as wrote it."""
+    """Load ``train_state_payload``'s payload into a freshly built, whole
+    ``state`` of the same shapes (the schedule rebuilt by the caller, then
+    its counter loaded) and into ``generator``, the stream of this rank's
+    slice of the batch. -> the step it resumes after. A snapshot resumes
+    only with the batch split into as many slices as when it was written."""
     gens = payload["generators"]
-    if len(gens) != process_count():
-        raise ValueError(f"the snapshot holds the generators of {len(gens)} ranks, "
-                         f"not of {process_count()}: resume with as many processes")
+    if len(gens) != data_count():
+        raise ValueError(f"the snapshot holds the generators of {len(gens)} batch slices, "
+                         f"not of {data_count()}: resume with as many data-parallel ranks")
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
         if isinstance(v, torch.nn.Module):
@@ -239,7 +264,7 @@ def restore_train_state(state, generator: torch.Generator, payload: dict) -> int
             setattr(state, f.name, CodebookState(**payload[f.name]).to(v.embed.device))
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
-    generator.set_state(gens[process_index()])
+    generator.set_state(gens[data_index()])
     state.step = int(payload["step"])
     return state.step
 
@@ -272,9 +297,11 @@ def _save_stage(name: str, save_path: str, tree: dict, cfg: Config, data: Datase
 
 def _rank_generator(seed: int, dev) -> torch.Generator:
     """The generator of this rank's dropouts, masks and SVQ draws: seeded
-    ``seed`` on rank 0 (a one-process run's), with the rank folded in on the
-    others, so the ranks' slices do not share masks."""
-    return torch.Generator(device=dev).manual_seed(seed + (process_index() << 32))
+    ``seed`` for the first slice of the batch (a one-process run's), with
+    the data index folded in for the others, so the slices do not share
+    masks and the ranks of a model group, which hold one slice, draw the
+    same ones."""
+    return torch.Generator(device=dev).manual_seed(seed + (data_index() << 32))
 
 
 def _replicate(*parts) -> None:
@@ -294,19 +321,20 @@ def _feed(arrays, batch_size: int, max_steps: int, seed: int, dev, start_step: i
     passing through) on ``dev``, in ``make_batches(shuffle=True, seed=seed,
     repeat=True)``'s global order. One process with ``on_device`` uploads
     the arrays once and gathers every batch on the device
-    (``_batch_order``). Otherwise, or inside a process group of more than one
-    rank (as in JAX), per-step host batches from step ``start_step`` + 1 on,
-    each rank its slice of every global batch, reach ``dev`` through
+    (``_batch_order``), as does every rank of a grid with one data index.
+    Otherwise, or when the batch is split over more than one rank (as in
+    JAX), per-step host batches from step ``start_step`` + 1 on, each rank
+    its data index's slice of every global batch, reach ``dev`` through
     ``prefetch_batches``: the same batches."""
     N = len(arrays[0])
-    if on_device and process_count() == 1:
+    if on_device and data_count() == 1:
         order = _batch_order(N, batch_size, max_steps, seed, dev)
         on_dev = [None if a is None else torch.from_numpy(a).to(dev) for a in arrays]
         return lambda step: tuple(None if a is None else a[order[step - 1]] for a in on_dev)
     if N < batch_size:
         raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
     order = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed, repeat=True,
-                         process_index=process_index(), process_count=process_count())
+                         process_index=data_index(), process_count=data_count())
     for _ in range(start_step):
         next(order)
     batches = prefetch_batches((tuple(None if a is None else a[idx] for a in arrays)
@@ -371,7 +399,6 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
 REFUSED = {
     "bundle_steps": "in eager PyTorch a bundle of steps is a Python loop of the same steps; "
                     "bundles return only as a CUDA-graphed step",
-    "tp": "tensor parallelism is not ported yet",
     "rng_impl": "torch has no counterpart to XLA's counter-based RNG implementations",
 }
 
@@ -382,6 +409,18 @@ def _unported(**flags) -> None:
     asked = [k for k, v in flags.items() if v]
     if asked:
         raise NotImplementedError("; ".join(f"{k}: {REFUSED[k]}" for k in asked))
+
+
+def _train_grid(tp: int):
+    """The context a stage trains in: with ``tp`` > 1 the (W / tp, tp) grid
+    of the W ranks (``parallel/tp.py``, JAX's ``_make_train_mesh``), else
+    none. A world that ``tp`` does not divide raises."""
+    if tp <= 1:
+        return contextlib.nullcontext()
+    W = process_count()
+    if W % tp:
+        raise ValueError(f"{W} devices not divisible by tp={tp}")
+    return make_mesh2d(W // tp, tp)
 
 
 def _val_samples(cfg: Config, sample_fn: Callable, n_val: Optional[int], seed: int, dev,
@@ -472,46 +511,52 @@ def train_stage1(
     statistics, the VQ's EMA statistics, the gradients and the logged
     metrics are the global batch's (``parallel/``), rank r's dropout masks
     come from its own generator (``_rank_generator``), the primary alone
-    writes the checkpoint and snapshots (holding every rank's generator),
-    and validation spreads its batches over the ranks.
+    writes the checkpoint and snapshots (holding every slice's generator),
+    and validation spreads its batches over the data index. With ``tp`` > 1
+    the ranks train as a (W / tp, tp) grid (module docstring).
     Step bundles (``bundle_steps`` > 1: in eager PyTorch a bundle is a loop
-    of the same steps, and would return as a CUDA-graphed step), tensor
-    parallelism (``tp`` > 1) and XLA's RNG implementations (``rng_impl``:
-    torch has no counterpart) raise ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1, rng_impl=rng_impl is not None)
+    of the same steps, and would return as a CUDA-graphed step) and XLA's
+    RNG implementations (``rng_impl``: torch has no counterpart) raise
+    ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1, rng_impl=rng_impl is not None)
+    grid = _train_grid(tp)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
     max_steps = max_steps or cfg.trainer_params.max_steps["stage1"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage1"):
         return None
 
-    t_init = time.time()
-    spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels,
-                                  compute_dtype=compute_dtype, remat=remat, fast_bn=fast_bn,
-                                  bf16_head=bf16_head, bf16_istft=bf16_istft)
-    model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(seed), dev)
-    _replicate(model, vq_l, vq_h)
-    state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    _say(f"[stage1] model init: {time.time() - t_init:.1f}s")
+    with grid:
+        t_init = time.time()
+        spec = Stage1Spec.from_config(cfg, data.input_length, data.in_channels,
+                                      compute_dtype=compute_dtype, remat=remat, fast_bn=fast_bn,
+                                      bf16_head=bf16_head, bf16_istft=bf16_istft)
+        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(seed), dev)
+        _replicate(model, vq_l, vq_h)
+        state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
+        _say(f"[stage1] model init: {time.time() - t_init:.1f}s")
 
-    gen = _rank_generator(seed + 1, dev)
-    start_step = _resume(save_path, resume, state, gen, "stage1")
-    step_fn = make_stage1_train_step()
-    t_up = time.time()
-    batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step, data_on_device)
-    if data_on_device and process_count() == 1:
-        _say(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
-             f"{time.time() - t_up:.1f}s")
+        gen = _rank_generator(seed + 1, dev)
+        start_step = _resume(save_path, resume, state, gen, "stage1")
+        shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
+        step_fn = make_stage1_train_step()
+        t_up = time.time()
+        batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step,
+                      data_on_device)
+        if data_on_device and data_count() == 1:
+            _say(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
+                 f"{time.time() - t_up:.1f}s")
 
-    def train_once(step):
-        return step_fn(state, batch(step)[0], gen)[1]
+        def train_once(step):
+            return step_fn(state, batch(step)[0], gen)[1]
 
-    eval_once = _make_eval(state, data.X_test, batch_size, dev) if len(data.X_test) else None
-    t_loop = time.time()
-    _loop("stage1", max_steps, train_once, eval_once, logger,
-          cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval,
-          start_step, _snapshotter(save_path, state, gen))
-    _say(f"[stage1] loop {time.time() - t_loop:.1f}s")
+        eval_once = _make_eval(state, data.X_test, batch_size, dev) if len(data.X_test) else None
+        t_loop = time.time()
+        _loop("stage1", max_steps, train_once, eval_once, logger,
+              cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval,
+              start_step, _snapshotter(save_path, state, gen))
+        _say(f"[stage1] loop {time.time() - t_loop:.1f}s")
+        unshard_train_state_tp(state)
     if save_path:
         tree = stage1_to_jax(state.model, state.vq_l, state.vq_h)
         _save_stage("stage1", save_path, {**tree, "step": np.asarray(state.step, np.int32)},
@@ -562,10 +607,13 @@ def train_stage2(
     rank. ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16. Inside
     a process group the ranks step as in ``train_stage1``: the HF prior's
     BatchNorm statistics, the masked cross-entropies' denominators, the
-    gradients and the logged metrics are the global batch's. The step
-    bundles (``bundle_steps`` > 1) and tensor parallelism (``tp`` > 1) raise
-    ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1)
+    gradients and the logged metrics are the global batch's. With ``tp`` > 1
+    the ranks train as a (W / tp, tp) grid (module docstring): the priors'
+    big parameters split over the model group, ``frozen`` whole on every
+    rank, each validation sampling from the priors gathered whole. The step
+    bundles (``bundle_steps`` > 1) raise ``NotImplementedError``."""
+    _unported(bundle_steps=bundle_steps > 1)
+    grid = _train_grid(tp)
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
         raise ValueError(f"the frozen stage 1 is on {frozen.vq_l.embed.device}, not {dev}")
@@ -574,45 +622,52 @@ def train_stage2(
     if save_path and _stage_completed(save_path, max_steps, resume, "stage2"):
         return None
 
-    t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
-                           torch.Generator().manual_seed(seed), dev)
-    _replicate(t_l, t_h)
-    state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    gen = _rank_generator(seed + 1, dev)
-    start_step = _resume(save_path, resume, state, gen, "stage2")
-    if precompute and process_count() == 1:
-        order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
-        y_dev = torch.from_numpy(data.y_train).to(dev)
-        t0 = time.time()
-        tok_l, tok_h = precompute_token_dataset(frozen, torch.from_numpy(data.X_train).to(dev),
-                                                batch_size=max(batch_size, 64))
-        _say(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
-        tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
+    with grid:
+        t_l, t_h = init_stage2(*build_transformers(cfg, frozen.model.spec, data.n_classes),
+                               torch.Generator().manual_seed(seed), dev)
+        _replicate(t_l, t_h)
+        state = create_stage2_state(t_l, t_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
+        gen = _rank_generator(seed + 1, dev)
+        start_step = _resume(save_path, resume, state, gen, "stage2")
+        shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
+        if precompute and data_count() == 1:
+            order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+            y_dev = torch.from_numpy(data.y_train).to(dev)
+            t0 = time.time()
+            tok_l, tok_h = precompute_token_dataset(frozen,
+                                                    torch.from_numpy(data.X_train).to(dev),
+                                                    batch_size=max(batch_size, 64))
+            _say(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
+            tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
 
-        def train_once(step):
-            idx = order[step - 1]
-            return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx], gen)[1]
-    else:
-        step_fn = make_stage2_train_step(frozen)
-        batch = _feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev, start_step)
+            def train_once(step):
+                idx = order[step - 1]
+                return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx],
+                                                gen)[1]
+        else:
+            step_fn = make_stage2_train_step(frozen)
+            batch = _feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev,
+                          start_step)
 
-        def train_once(step):
-            return step_fn(state, *batch(step), gen)[1]
+            def train_once(step):
+                return step_fn(state, *batch(step), gen)[1]
 
-    eval_once = None
-    if metrics is not None:
-        sample_fn = make_sampling_fn(frozen, state.t_l, state.t_h,
-                                     MaskGITSpec.from_config(cfg, frozen.model.spec))
+        eval_once = None
+        if metrics is not None:
+            sample_fn = make_sampling_fn(frozen, state.t_l, state.t_h,
+                                         MaskGITSpec.from_config(cfg, frozen.model.spec))
 
-        def eval_once(step):
-            if not is_primary():
-                return {}
-            return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
-                                                          10_000 + step, dev))
+            def eval_once(step):
+                with gathered(state.t_l, state.t_h):
+                    if not is_primary():
+                        return {}
+                    return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
+                                                                  10_000 + step, dev))
 
-    _loop("stage2", max_steps, train_once, eval_once, logger,
-          cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
-          start_step, _snapshotter(save_path, state, gen))
+        _loop("stage2", max_steps, train_once, eval_once, logger,
+              cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
+              start_step, _snapshotter(save_path, state, gen))
+        unshard_train_state_tp(state)
     if save_path:
         params, h_stats = prior_to_jax(state.t_l, state.t_h)
         _save_stage("stage2", save_path, {"params": params, "h_stats": h_stats,
@@ -670,14 +725,18 @@ def train_stage3(
     enhancer, ``bf16_mu``/``bf16_nu`` to the optimizer; the frozen stage 1
     stays as it was loaded (float32 from the CLI, as in JAX). Inside a
     process group the gradients and the logged metrics are the global
-    batch's (the enhancer's GroupNorms are per series). The step bundles
-    (``bundle_steps`` > 1) and tensor parallelism (``tp`` > 1) raise
-    ``NotImplementedError``. So does
+    batch's (the enhancer's GroupNorms are per series). With ``tp`` > 1 the
+    ranks train as a (W / tp, tp) grid (module docstring): the enhancer's
+    big parameters split over the model group, ``frozen`` whole on every
+    rank, each validation enhancing with the enhancer gathered whole. The
+    step bundles (``bundle_steps`` > 1) raise ``NotImplementedError``. So
+    does
     ``percept_loss_weight`` > 0: the JAX runner hands its steps no
     ``percept_fn`` and so trains such a config without the term; the port
     refuses it rather than do the same (``train/stage3.py`` takes the
     term)."""
-    _unported(bundle_steps=bundle_steps > 1, tp=tp > 1)
+    _unported(bundle_steps=bundle_steps > 1)
+    grid = _train_grid(tp)
     if cfg.fidelity_enhancer.percept_loss_weight > 0.0:
         raise NotImplementedError(
             "percept_loss_weight > 0: the JAX runner passes its stage-3 steps no percept_fn "
@@ -690,50 +749,54 @@ def train_stage3(
     max_steps = max_steps or cfg.trainer_params.max_steps["stage3"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage3"):
         return None
-    precompute = precompute and tau == 0.0 and process_count() == 1
+    precompute = precompute and tau == 0.0 and data_count() == 1
 
-    fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
-                                                  compute_dtype, fast_norm),
-                     torch.Generator().manual_seed(seed), dev)
-    _replicate(fe)
-    state = create_stage3_state(fe, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
-    gen = _rank_generator(seed + 1, dev)
-    start_step = _resume(save_path, resume, state, gen, "stage3")
-    if precompute:
-        step_fn = make_stage3_train_step_pre()
-        order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
-        X_dev = torch.from_numpy(data.X_train).to(dev)
-        t0 = time.time()
-        xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
-                                           keep_on_device=True)
-        _say(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
+    with grid:
+        fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
+                                                      compute_dtype, fast_norm),
+                         torch.Generator().manual_seed(seed), dev)
+        _replicate(fe)
+        state = create_stage3_state(fe, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
+        gen = _rank_generator(seed + 1, dev)
+        start_step = _resume(save_path, resume, state, gen, "stage3")
+        shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
+        if precompute:
+            step_fn = make_stage3_train_step_pre()
+            order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
+            X_dev = torch.from_numpy(data.X_train).to(dev)
+            t0 = time.time()
+            xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
+                                               keep_on_device=True)
+            _say(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
 
-        def train_once(step):
-            idx = order[step - 1]
-            return step_fn(state, X_dev[idx], xprime[idx], gen)[1]
-    else:
-        step_fn = make_stage3_train_step(frozen, tau)
-        batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
+            def train_once(step):
+                idx = order[step - 1]
+                return step_fn(state, X_dev[idx], xprime[idx], gen)[1]
+        else:
+            step_fn = make_stage3_train_step(frozen, tau)
+            batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
 
-        def train_once(step):
-            return step_fn(state, batch(step)[0], gen)[1]
+            def train_once(step):
+                return step_fn(state, batch(step)[0], gen)[1]
 
-    eval_once = None
-    if metrics is not None and stage2_ckpt is not None:
-        t_l, t_h = priors_from_tree(cfg, frozen.model.spec, data.n_classes,
-                                    load_checkpoint(stage2_ckpt)[0])
-        sample_fn = make_sampling_fn(frozen, t_l.to(dev).eval(), t_h.to(dev).eval(),
-                                     MaskGITSpec.from_config(cfg, frozen.model.spec))
+        eval_once = None
+        if metrics is not None and stage2_ckpt is not None:
+            t_l, t_h = priors_from_tree(cfg, frozen.model.spec, data.n_classes,
+                                        load_checkpoint(stage2_ckpt)[0])
+            sample_fn = make_sampling_fn(frozen, t_l.to(dev).eval(), t_h.to(dev).eval(),
+                                         MaskGITSpec.from_config(cfg, frozen.model.spec))
 
-        def eval_once(step):
-            if not is_primary():
-                return {}
-            return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
-                                                          20_000 + step, dev, enhance=state.fe))
+            def eval_once(step):
+                with gathered(state.fe):
+                    if not is_primary():
+                        return {}
+                    return _running_metrics(metrics, _val_samples(
+                        cfg, sample_fn, val_n_samples, 20_000 + step, dev, enhance=state.fe))
 
-    _loop("stage3", max_steps, train_once, eval_once, logger,
-          cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,
-          start_step, _snapshotter(save_path, state, gen))
+        _loop("stage3", max_steps, train_once, eval_once, logger,
+              cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,
+              start_step, _snapshotter(save_path, state, gen))
+        unshard_train_state_tp(state)
     if save_path:
         _save_stage("stage3", save_path, {"params": fe_to_jax(state.fe),
                                           "tau": np.asarray(tau, np.float32),
@@ -813,10 +876,12 @@ def _make_eval(state: Stage1TrainState, X_test: np.ndarray, batch_size: int, dev
     """Validation over the whole test split: fixed batches of
     ``min(batch_size, N)`` indices, the last wrapped around to the start,
     and the wrapped entries masked out of the per-sample sums, so the
-    metrics are exact means over the split. Inside a process group rank r
-    evaluates batches r, r + W, ... (the split must make a batch for every
-    rank) and one all-reduce sums the sums: the same means as one
-    process's, up to the order of the additions."""
+    metrics are exact means over the split. Inside a process group the
+    ranks of data index d evaluate batches d, d + D, ... of D data indices
+    (the split must make a batch for every index; under a grid every rank of
+    a model group runs the same batches, whose sharded weights it gathers
+    with the others) and one all-reduce over the data group sums the sums:
+    the same means as one process's, up to the order of the additions."""
     eval_step = make_stage1_eval_step(per_sample=True)
     X = torch.from_numpy(X_test).to(dev)
     N = len(X_test)
@@ -824,10 +889,10 @@ def _make_eval(state: Stage1TrainState, X_test: np.ndarray, batch_size: int, dev
     nb = -(-N // bs)
     flat = torch.arange(nb * bs, device=dev)
     idx, valid = (flat % N).reshape(nb, bs), (flat < N).reshape(nb, bs)
-    if nb < process_count():
+    if nb < data_count():
         raise ValueError(f"{N} test series make {nb} validation batches of {bs}, fewer than "
-                         f"the {process_count()} ranks")
-    mine = range(process_index(), nb, process_count())
+                         f"the {data_count()} data-parallel ranks")
+    mine = range(data_index(), nb, data_count())
 
     def eval_once(step):
         sums, scalar_sums = {}, {}

@@ -23,7 +23,7 @@ so the port writes its checkpoints in the JAX package's layout.
 """
 
 from collections import OrderedDict
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,17 +42,44 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
+# the torch weight's dims in the flax kernel's order, by layer kind: flax's
+# kernel is ``weight.permute(KERNEL_AXES[kind])`` (a transposed conv's also
+# flipped spatially), so flax axis a is the weight's dim KERNEL_AXES[kind][a]
+KERNEL_AXES = {"dense": (1, 0), "conv1d": (2, 1, 0), "conv2d": (2, 3, 1, 0),
+               "conv_transpose2d": (2, 3, 0, 1)}
+
+
+def _kernel_kind(path, ndim: int) -> str:
+    """A flax kernel's layer kind, from its rank and module name."""
+    if ndim == 4 and path[-2].startswith("ConvTranspose2dTorch"):
+        return "conv_transpose2d"
+    return {2: "dense", 3: "conv1d", 4: "conv2d"}[ndim]
+
+
+def module_kind(module: nn.Module) -> Optional[str]:
+    """The ``KERNEL_AXES`` kind of a module's ``weight``, or None where the
+    weight is stored as flax stores it (embeddings, norm scales)."""
+    for cls, kind in ((nn.ConvTranspose2d, "conv_transpose2d"), (nn.Conv2d, "conv2d"),
+                      (nn.Conv1d, "conv1d"), (nn.Linear, "dense")):
+        if isinstance(module, cls):
+            return kind
+    return None
+
+
+def flax_axes(module: nn.Module, name: str, ndim: int) -> Tuple[int, ...]:
+    """The dims of ``module``'s parameter ``name`` in the order of its flax
+    leaf's axes (the identity for every leaf but a layer's kernel)."""
+    kind = module_kind(module) if name == "weight" else None
+    return KERNEL_AXES[kind] if kind else tuple(range(ndim))
+
+
 def _param(path, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     if leaf == "kernel":
-        if arr.ndim == 2:
-            arr = arr.T
-        elif arr.ndim == 3:
-            arr = arr.transpose(2, 1, 0)
-        elif mods[-1].startswith("ConvTranspose2dTorch"):
-            arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-        else:
-            arr = arr.transpose(3, 2, 0, 1)
+        kind = _kernel_kind(path, arr.ndim)
+        arr = arr.transpose(np.argsort(KERNEL_AXES[kind]))
+        if kind == "conv_transpose2d":
+            arr = arr[:, :, ::-1, ::-1]
         name = "weight"
     elif leaf in _RENAME:
         name = _RENAME[leaf]
@@ -128,14 +155,11 @@ _NORMS = (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm, nn.RMSNorm
 def _flax_param(module: nn.Module, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     """The inverse of ``_param`` for one parameter of ``module``."""
     if name == "weight":
-        if isinstance(module, nn.ConvTranspose2d):
-            return "kernel", arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-        if isinstance(module, nn.Conv2d):
-            return "kernel", arr.transpose(2, 3, 1, 0)
-        if isinstance(module, nn.Conv1d):
-            return "kernel", arr.transpose(2, 1, 0)
-        if isinstance(module, nn.Linear):
-            return "kernel", arr.T
+        kind = module_kind(module)
+        if kind == "conv_transpose2d":
+            arr = arr[:, :, ::-1, ::-1]
+        if kind:
+            return "kernel", arr.transpose(KERNEL_AXES[kind])
         if isinstance(module, nn.Embedding):
             return "embedding", arr
         if isinstance(module, _NORMS):
