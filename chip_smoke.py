@@ -208,7 +208,9 @@ It needs no JAX and no network. Phases, each fatal on failure:
      against the token path; a 32-batch sampled from the trained priors;
      the x' sweep through the kernel and its plain twin; three on-the-fly
      stage-3 steps against the precomputed path and three at tau 0.5; a
-     small stage 3 and a small FCN on the card against the CPU; the
+     small stage 3 (dim_mults (1, 2) with dropout 0, and the published
+     (1, 2, 4, 8) with dropout 0.5 on masks drawn on the CPU and replayed on
+     the card) and a small FCN on the card against the CPU; the
      published-width enhancer on the card against the CPU and a float64
      witness; the sampler with a seeded enhancer, and the trained enhancer
      over a batch sampled from the trained priors; a small model in
@@ -1862,16 +1864,57 @@ def witness_check(label, ours, ref, exact, tight, loose=None):
     return worst, witnessed
 
 
+class MaskTape:
+    """Stands in for ``models/fidelity_enhancer.py::dropout``, so that two
+    devices, a float64 witness or two packages drop the same elements.
+    Made with a seed, it records: each call draws its keep mask on the CPU
+    and keeps it. After ``rewind`` it replays what it recorded, after
+    ``load(masks)`` the masks given: each call takes the next mask (its
+    shape must be the call's), moved to its input's device. ``pos`` counts
+    the calls of the replay."""
+
+    def __init__(self, torch, seed=None):
+        self.gen = None if seed is None else torch.Generator().manual_seed(seed)
+        self.masks, self.pos = [], None if seed is not None else 0
+
+    def rewind(self):
+        self.pos = 0
+
+    def load(self, masks):
+        self.masks, self.pos = list(masks), 0
+
+    def __call__(self, x, rate, generator=None):
+        from tvqvae_tpu_torch.models.layers import dropout, dropout_mask
+
+        if self.pos is None:
+            self.masks.append(dropout_mask(tuple(x.shape), rate, self.gen))
+            mask = self.masks[-1]
+        else:
+            check(self.pos < len(self.masks), "dropout tape: more calls than masks")
+            mask = self.masks[self.pos]
+            check(tuple(mask.shape) == tuple(x.shape),
+                  f"dropout tape: call {self.pos} of {tuple(x.shape)}, mask {tuple(mask.shape)}")
+            self.pos += 1
+        return dropout(x, rate, mask=mask.to(x.device))
+
+
+SMALL_STAGE3_CASES = {"dim_mults (1, 2), dropout 0": ([1, 2], 0.0),
+                      "dim_mults (1, 2, 4, 8), dropout 0.5": ([1, 2, 4, 8], 0.5)}
+
+
 def small_stage3_check(torch, devices=("cpu", "cuda"), steps=3):
-    """The same seeded small stage 1 and small enhancer (dim 8, dim_mults
-    (1, 2), dropout 0) on the CPU (plain VQ) and on the card (kernel): the
-    x' sweep within 1e-5 of its scale, three on-the-fly tau = 0 steps'
-    losses within 1e-5 relative, parameters within 1e-5 (the float64
-    witness rule of ``witness_check``)."""
+    """The same seeded small stage 1 and small enhancer (dim 8, 4 groups) on
+    the CPU (plain VQ) and on the card (kernel), at dim_mults (1, 2) with
+    dropout 0 and at the published dim_mults (1, 2, 4, 8) with the published
+    dropout 0.5 (the masks drawn once on the CPU and handed to both devices
+    and the witness, ``MaskTape``): the x' sweep within 1e-5 of its scale,
+    three on-the-fly tau = 0 steps' losses within 1e-5 relative,
+    parameters within 1e-5 (the float64 witness rule of
+    ``witness_check``)."""
     import copy
 
     from tvqvae_tpu_torch.config import Config
-    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models import fidelity_enhancer as tfe
     from tvqvae_tpu_torch.models.maskgit import FrozenStage1
     from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
     from tvqvae_tpu_torch.train.runner import _adamw
@@ -1883,38 +1926,51 @@ def small_stage3_check(torch, devices=("cpu", "cuda"), steps=3):
         precompute_xprime_dataset,
     )
 
-    cfg = Config.from_dict({**SMALL_CFG, "fidelity_enhancer": {**SMALL_CFG["fidelity_enhancer"],
-                                                               "dropout": 0.0}})
     Ls, n = 127, 8
-    spec = Stage1Spec.from_config(cfg, Ls, C)
     xs = np.random.default_rng(10).normal(size=(steps, n, C, Ls)).astype(np.float32)
-    runs = []
-    for dev in devices:
-        model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
-        frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
-        fe = init_stage3(FidelityEnhancer.from_config(cfg, Ls, C), torch.Generator().manual_seed(4), dev)
-        fe0 = copy.deepcopy(fe)
-        state = create_stage3_state(fe, _adamw(cfg, SMALL_STEPS))
-        xprime = precompute_xprime_dataset(frozen, xs.reshape(-1, C, Ls), batch_size=n)
-        step = make_stage3_train_step(frozen)
-        losses = [step(state, torch.from_numpy(x).to(dev))[1]["loss"].item() for x in xs]
-        runs.append((state, xprime, losses, fe0))
-    (ref, ref_xp, ref_loss, fe0), (dut, dut_xp, dut_loss, _) = runs
-    xp_err = float(np.abs(dut_xp - ref_xp).max() / np.abs(ref_xp).max())
-    check(xp_err <= 1e-5, f"small stage 3: x' off by {xp_err} of its scale")
-    loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
-    check(loss_err <= 1e-5, f"small stage 3: losses off by {loss_err} relative")
-    # the float64 witness: the CPU's precomputed steps from the same x', in float64
-    exact_fe = fe0.double()
-    exact = create_stage3_state(exact_fe, _adamw(cfg, SMALL_STEPS))
-    pre = make_stage3_train_step_pre()
-    for x, xp in zip(xs, ref_xp.reshape(steps, n, C, Ls)):
-        pre(exact, torch.from_numpy(x).double(), torch.from_numpy(xp).double())
-    worst, witnessed = witness_check("small stage 3", dut.fe.state_dict(), ref.fe.state_dict(),
-                                     exact.fe.state_dict(), 1e-5)
-    print(f"[reference] small stage 3, {steps} steps, card vs CPU: x' {xp_err:.3g} of scale, "
-          f"losses {dut_loss} vs {ref_loss}, rel err {loss_err:.3g}, parameters {worst:.3g} "
-          f"(held to the float64 witness: {witnessed or 'none'})", flush=True)
+    drop = tfe.dropout
+    for label, (mults, rate) in SMALL_STAGE3_CASES.items():
+        cfg = Config.from_dict({**SMALL_CFG, "fidelity_enhancer": {
+            **SMALL_CFG["fidelity_enhancer"], "dim_mults": mults, "dropout": rate}})
+        spec = Stage1Spec.from_config(cfg, Ls, C)
+        tape = tfe.dropout = MaskTape(torch, 11)
+        try:
+            runs = []
+            for dev in devices:
+                model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(3), dev)
+                frozen = FrozenStage1(model.eval().requires_grad_(False), vq_l, vq_h)
+                fe = init_stage3(tfe.FidelityEnhancer.from_config(cfg, Ls, C),
+                                 torch.Generator().manual_seed(4), dev)
+                fe0 = copy.deepcopy(fe)
+                state = create_stage3_state(fe, _adamw(cfg, SMALL_STEPS))
+                xprime = precompute_xprime_dataset(frozen, xs.reshape(-1, C, Ls), batch_size=n)
+                step = make_stage3_train_step(frozen)
+                losses = [step(state, torch.from_numpy(x).to(dev))[1]["loss"].item() for x in xs]
+                runs.append((state, xprime, losses, fe0))
+                replayed = tape.pos
+                tape.rewind()
+            (ref, ref_xp, ref_loss, fe0), (dut, dut_xp, dut_loss, _) = runs
+            recorded = len(tape.masks)
+            check(replayed == recorded == (38 * steps if rate else 0),
+                  f"small stage 3 ({label}): {recorded} masks recorded, {replayed} replayed")
+            xp_err = float(np.abs(dut_xp - ref_xp).max() / np.abs(ref_xp).max())
+            check(xp_err <= 1e-5, f"small stage 3 ({label}): x' off by {xp_err} of its scale")
+            loss_err = max(abs(a - b) / abs(a) for a, b in zip(ref_loss, dut_loss))
+            check(loss_err <= 1e-5, f"small stage 3 ({label}): losses off by {loss_err} relative")
+            # the float64 witness: the CPU's precomputed steps from the same x' and masks, in float64
+            tape.rewind()
+            exact = create_stage3_state(fe0.double(), _adamw(cfg, SMALL_STEPS))
+            pre = make_stage3_train_step_pre()
+            for x, xp in zip(xs, ref_xp.reshape(steps, n, C, Ls)):
+                pre(exact, torch.from_numpy(x).double(), torch.from_numpy(xp).double())
+        finally:
+            tfe.dropout = drop
+        worst, witnessed = witness_check(f"small stage 3 ({label})", dut.fe.state_dict(),
+                                         ref.fe.state_dict(), exact.fe.state_dict(), 1e-5)
+        print(f"[reference] small stage 3 ({label}; {recorded} dropout masks), {steps} steps, "
+              f"card vs CPU: x' {xp_err:.3g} of scale, losses {dut_loss} vs {ref_loss}, "
+              f"rel err {loss_err:.3g}, parameters {worst:.3g} "
+              f"(held to the float64 witness: {witnessed or 'none'})", flush=True)
 
 
 def published_fe_check(torch, series):

@@ -55,7 +55,7 @@ ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
 class WSConv1d(Conv1d):
     """Weight-standardised 'same' conv (odd kernel): per output channel,
     (w - mean) / sqrt(var + eps) over (taps, input channels) in float32,
-    then the conv and bias in ``compute_dtype``."""
+    then the conv and bias in ``compute_dtype`` (``layers._CastAtCall``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  compute_dtype=None):
@@ -63,12 +63,10 @@ class WSConv1d(Conv1d):
                          compute_dtype=compute_dtype)
 
     def forward(self, x):
-        dt = self.compute_dtype
-        eps = 1e-5 if dt in (None, torch.float32) else 1e-3
+        eps = 1e-5 if self.compute_dtype in (None, torch.float32) else 1e-3
         w = self.weight  # read once: a tensor-parallel weight is gathered at every read
         var, mean = torch.var_mean(w, dim=(1, 2), keepdim=True, correction=0)
-        w = (w - mean) * torch.rsqrt(var + eps)
-        return self._functional(cast_to(x, dt), cast_to(w, dt), cast_to(self.bias, dt))
+        return self._cast_call(x, (w - mean) * torch.rsqrt(var + eps))
 
 
 class ChanLayerNorm(nn.Module):

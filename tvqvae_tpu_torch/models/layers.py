@@ -90,15 +90,22 @@ def stats_dtype(x: torch.Tensor) -> torch.dtype:
 class _CastAtCall:
     """A conv computing in ``compute_dtype``: input, kernel and bias are cast
     at each call before the functional conv (float32 parameters, as flax's
-    ``nn.Conv(dtype=...)``; None: no cast)."""
+    ``nn.Conv(dtype=...)``; None: no cast). The bias is added to the conv's
+    output in that dtype, as flax adds it: a conv given the bias (torch's
+    CPU convs fuse it) rounds once where flax rounds twice under bfloat16."""
 
     def __init__(self, *args, compute_dtype=None, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        return self._cast_call(x, self.weight)
+
+    def _cast_call(self, x, w):
         dt = self.compute_dtype
-        return self._functional(cast_to(x, dt), cast_to(self.weight, dt), cast_to(self.bias, dt))
+        y = self._functional(cast_to(x, dt), cast_to(w, dt), None)
+        b = cast_to(self.bias, dt)
+        return y if b is None else y + b.view(-1, *[1] * (y.dim() - 2))
 
 
 class Conv2d(_CastAtCall, nn.Conv2d):

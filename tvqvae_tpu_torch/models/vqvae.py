@@ -90,4 +90,5 @@ class TimeHead(nn.Module):
         x = interp_linear(x, self.input_length)
         w, b = self.Dense_0.weight, self.Dense_0.bias
         dt = self.compute_dtype or w.dtype
-        return x + F.linear(x.to(dt), w.to(dt), b.to(dt)).to(w.dtype)
+        # the bias after the rounded product, as flax's nn.Dense adds it
+        return x + (F.linear(x.to(dt), w.to(dt)) + b.to(dt)).to(w.dtype)
