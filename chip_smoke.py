@@ -107,14 +107,18 @@ It needs no JAX and no network. Phases, each fatal on failure:
      LIMC great circle with smooth noise, each with a flown counterpart
      shaped like a 10-s BlueSky log (every 8th point, 0.005 deg of noise;
      bucket (5120, 1024)), and 2 pairs of 4633 points each (bucket (5120,
-     5120)): one launch of each kernel (``csrc/traj_dp.cu``,
-     ``csrc/frechet_decision.cu``) a bucket, wall ms, pairs/s, device ms a
-     launch (torch.profiler); then the DP kernel against its plain version
-     on 2 pairs of the first bucket (EDR and LCSS exactly, the discrete
-     Frechet 1e-6, DTW and ERP 1e-5 relative), SSPD and Hausdorff against
-     the plain matrices on the card and the CPU, and the Frechet kernel
-     against its plain version (its decision replayed from a CUDA graph) on
-     2 pairs of (1024, 512) points (1e-5 relative), each with ms, the plain
+     5120)): one launch of ``csrc/traj_dp.cu`` a bucket and the rounds of
+     ``csrc/frechet_decision.cu`` that its launch plan gives the bucket,
+     wall ms, pairs/s, device ms a launch (torch.profiler); each bucket's
+     Frechet equal to the kernel at depth 1 (the sequential schedule), its
+     ms a call beside the depth-1 call's (CUDA events, in turns), its depth,
+     rounds, blocks and ns a dependent step; then the DP kernel against its plain version on 2
+     pairs of the first bucket (EDR and LCSS exactly, the discrete Frechet
+     1e-6, DTW and ERP 1e-5 relative), SSPD and Hausdorff against the plain
+     matrices on the card and the CPU, and the Frechet kernel against its
+     plain version (its decision replayed from a CUDA graph) on 2 pairs of
+     (1024, 512) points and at each bucket's plan on its pairs cut to 64 of
+     p's points (1e-5 relative, and equal to depth 1), with ms, the plain
      version's ms and the bound.
  14c. preprocess: (a) the counters set to 0, the OpenSky preprocess CLI in
      the process on a synthetic export written by the phase (5 corridors of
@@ -317,23 +321,28 @@ QUALITY_STEPS, QUALITY_EVAL = {"stage1": 10, "stage2": 20, "stage3": 5}, 64
 # DP kernel is held to its plain version on FLY_CHECK_PAIRS pairs of the
 # first bucket, the Frechet kernel on FLY_CHECK_PAIRS pairs of exactly
 # FLY_FRECHET_SHAPE points (the plain Frechet at full length takes minutes).
-# Two more checks reach the launch plans of the full-length buckets that those
-# shapes do not: the Frechet's rows of 8 elements a thread, on pairs of
-# FLY_CHUNK8_ROWS x L points (the plain Frechet's cost grows with the rows),
-# and the DP's diagonals longer than a block's 1024 threads, on pairs of
-# FLY_WIDE x FLY_WIDE points.
+# More checks reach the launch plans of the full-length buckets that those
+# shapes do not: the Frechet's plan of each bucket of the batch (its depth,
+# candidates a block, elements a thread and block size), on the bucket's
+# pairs cut to FLY_BRANCH_ROWS of p's points (the plain Frechet's cost grows
+# with the rows), and the DP's diagonals longer than a block's 1024 threads,
+# on pairs of FLY_WIDE x FLY_WIDE points.
 FLY_PAIRS, FLY_LONG_PAIRS, FLY_STRIDE, FLY_CHECK_PAIRS = 64, 2, 8, 2
 FLY_FRECHET_SHAPE = (1024, 512)
-FLY_CHUNK8_ROWS, FLY_WIDE = 64, 1100
+FLY_BRANCH_ROWS, FLY_WIDE = 64, 1100
 # fp32 operations per grid cell, a transcendental counted as one: the cost
 # (planar: 2 sub, 2 mul, 2 add, sqrt; spherical: 2 sub, 2 halvings, 2 sin, 2
-# squares, 2 mul, add, 2 clamps, sqrt, asin, mul) and each recurrence; the
-# Frechet decision's cell: two free intervals (4 sub, 6 mul, 3 add, max, 2
-# div, sub, mul, add, 2 compares, sqrt, sub, add, 2 clamps: 26 each) and
-# the map's compose and apply (8)
+# squares, 2 mul, add, 2 clamps, sqrt, asin, mul) and each recurrence. The
+# Frechet: at each cell that a decision reaches, the eps-dependent part of its
+# two free intervals (disc: sub, div, add; its sign; the root; lo and hi:
+# sub, add and two clamps: 9 each) and the update (two emptiness tests, a
+# max, the top's test, two caps' tests, a max: 7); once a cell for all 30
+# decisions, the eps-invariant part (w: 2 sub; w.w and w.d: 2 mul and an add
+# each; t0: div; t0^2: mul: 10 each). The segments' terms (once a row or a
+# column) and the boundary edges are left out.
 DP_COST_OPS = {"euclidean": 7, "spherical": 16}
 DP_STEP_OPS = {"dtw": 3, "erp": 5, "edr": 6, "lcss": 4, "discret_frechet": 3}
-FRECHET_CELL_OPS = 2 * 26 + 8
+FRECHET_STEP_OPS, FRECHET_CELL_OPS = 2 * 9 + 7, 2 * 10
 FLY_KERNELS = ("traj_dp_kernel", "frechet_kernel")  # csrc/traj_dp.cu, csrc/frechet_decision.cu
 # [preprocess]: (a) the OpenSky CLI on PREP_CORRIDORS corridors of
 # PREP_PER_CORRIDOR flights of ~PREP_POINTS points each (the published
@@ -2830,17 +2839,30 @@ def fly_tracks(rng, n_pairs, length, stride, flown_noise=0.005):
     return gens, sims
 
 
-def fly_bound(n, m, variants=None):
-    """Least time of one traj_dp launch (``variants`` given) or one Frechet
-    launch over pairs of true lengths ``n``, ``m``: the bytes they need read
-    once (their points, lengths, and hi) and written once at
-    HBM_BYTES_PER_S, or the fp32 operations of the true grids at
-    FP32_FLOPS, the larger. -> (ms, bound_by, ops)."""
-    from tvqvae_tpu_torch.ops.frechet_kernel import STEPS
+def fly_batch(rng):
+    """The [flyability] batch: FLY_PAIRS generated tracks of L points with
+    their flown tracks at every FLY_STRIDE-th point, and FLY_LONG_PAIRS whose
+    flown tracks keep every point. -> (gens, sims)."""
+    gens, sims = fly_tracks(rng, FLY_PAIRS, L, FLY_STRIDE)
+    long_gens, _ = fly_tracks(rng, FLY_LONG_PAIRS, L, 1)
+    gens += long_gens
+    sims += [g + rng.normal(0, 0.005, g.shape).astype(np.float32) for g in long_gens]
+    return gens, sims
 
+
+def fly_bound(n, m, variants=None, reached=None):
+    """Least time of one traj_dp launch (``variants`` given) or one Frechet
+    call (``reached`` given: (30, B) cells that each sequential decision
+    reaches, ``frechet_kernel.reached_cells``) over pairs of true lengths
+    ``n``, ``m``: the bytes they need read once (their points, lengths, and
+    hi) and written once at HBM_BYTES_PER_S, or the fp32 operations at
+    FP32_FLOPS, the larger. The DP's operations cover the true grids; the
+    Frechet's the reached cells at every step and, once, the most cells one
+    step reaches (a larger eps reaches a superset). -> (ms, bound_by, ops)."""
     points = 8 * (sum(n) + sum(m))
     if variants is None:
-        ops = STEPS * FRECHET_CELL_OPS * sum((a - 1) * (b - 1) for a, b in zip(n, m))
+        reached = np.asarray(reached, np.int64)
+        ops = FRECHET_STEP_OPS * int(reached.sum()) + FRECHET_CELL_OPS * int(reached.max(0).sum())
         nbytes = points + len(n) * (8 + 4 + 4)
     else:
         cells = sum(a * b for a, b in zip(n, m))
@@ -2873,10 +2895,11 @@ def fly_device_ms(torch, fn):
     return {k: [d for _, d in sorted(v)] for k, v in launches.items()}, busy
 
 
-def frechet_plain_start(torch, D, p, q, hi, device="cuda"):
-    """Start ``distances.frechet_bisect`` on pairs whose padding repeats
-    their last point (as ``frechet_bisect`` pads): its 30 bisection steps of
-    the plain decision ``_frechet_decision``. Eagerly each step is ~1.6e5
+def frechet_plain_start(torch, D, p, q, n, m, hi, device="cuda"):
+    """Start ``distances.frechet_bisect`` on pairs of true lengths n, m whose
+    padding repeats their last point (as ``frechet_bisect`` pads): its 30
+    bisection steps of the plain decision ``_frechet_decision``, which also
+    counts each step's reached cells. Eagerly each step is ~1.6e5
     launches from the host; on the card the decision is captured once in a
     CUDA graph and the steps are replayed on a side stream, which leaves the
     host free for other work meanwhile. The tensors made on the current
@@ -2885,29 +2908,36 @@ def frechet_plain_start(torch, D, p, q, hi, device="cuda"):
     replays read or write is handed to other work before. Capturing a graph
     waits for the whole card: start the shorter of two first. -> a function
     that waits and returns (hi, ms: the capture's host time plus the
-    replays' device time)."""
+    replays' device time, (30, B) int64 reached cells)."""
     t0 = time.perf_counter()
+    lengths = tuple(torch.as_tensor(x, dtype=torch.int64, device=p.device) for x in (n, m))
     lo = torch.maximum(torch.sqrt(D._sq_dist(p[:, 0], q[:, 0])),
                        torch.sqrt(D._sq_dist(p[:, -1], q[:, -1])))
     eps = 0.5 * (lo + hi)
+    cells = []
     if device != "cuda":  # the CPU rehearsal: eagerly
-        hi = D.frechet_bisect(p, q, p.shape[1], q.shape[1], hi)
-        return lambda: (hi, 1e3 * (time.perf_counter() - t0))
+        for _ in range(D.BISECTION_STEPS):
+            eps = 0.5 * (lo + hi)
+            ok, c = D._frechet_decision(p, q, eps, lengths)
+            cells.append(c)
+            lo, hi = torch.where(ok, lo, eps), torch.where(ok, eps, hi)
+        return lambda: (hi, 1e3 * (time.perf_counter() - t0), torch.stack(cells))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    for t in (p, q, lo, hi, eps):
+    for t in (p, q, lo, hi, eps, *lengths):
         t.record_stream(side)
     with torch.cuda.stream(side):
-        D._frechet_decision(p, q, eps)  # warm-up outside the capture
+        D._frechet_decision(p, q, eps, lengths)  # warm-up outside the capture
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            ok = D._frechet_decision(p, q, eps)
+            ok, count = D._frechet_decision(p, q, eps, lengths)
         capture_ms = 1e3 * (time.perf_counter() - t0)
         first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         first.record(side)
         for _ in range(D.BISECTION_STEPS):
             eps.copy_(0.5 * (lo + hi))
             graph.replay()
+            cells.append(count.clone())
             lo, hi = torch.where(ok, lo, eps), torch.where(ok, eps, hi)
         last.record(side)
 
@@ -2915,32 +2945,62 @@ def frechet_plain_start(torch, D, p, q, hi, device="cuda"):
         last.synchronize()
         torch.cuda.current_stream().wait_stream(side)
         graph.reset()  # the replays have run: its pool may go
-        return hi, capture_ms + first.elapsed_time(last)
+        return hi, capture_ms + first.elapsed_time(last), torch.stack(cells)
 
     return finish
+
+
+def fly_bucket_inputs(torch, D, gens, sims, out, device):
+    """The batch's buckets as ``_score_bucket`` receives them, in launch
+    order (``distances.shape_buckets``): {key: (indices, p, q, n, m, hi)}, hi
+    the batch's discrete Frechet (float32 values, exact through Python
+    floats)."""
+    return {key: (idxs, p, q, n, m,
+                  torch.tensor([out["Discrete Frechet"][i] for i in idxs], dtype=torch.float32,
+                               device=device))
+            for key, (idxs, p, q, n, m) in D.shape_buckets(gens, sims, device).items()}
+
+
+def fly_plan(frechet_kernel, B, mmax, device, depth=None):
+    """The Frechet kernel's launch plan on the card; in a CPU rehearsal the
+    rule on an H100's 132 SMs at one block an SM."""
+    if device == "cuda":
+        return frechet_kernel.card_plan(B, mmax, device, depth)
+    return frechet_kernel.launch_plan(B, mmax, 132, lambda *a: 1, depth)
+
+
+def fly_reached(torch, frechet_kernel, D, p, q, n, m, hi, device):
+    """(30, B) cells that the 30 sequential decisions reach: the kernel's
+    count on the card; in a CPU rehearsal the plain decision's."""
+    if device == "cuda":
+        return frechet_kernel.reached_cells(p, q, n, m, hi).cpu()
+    return frechet_plain_start(torch, D, p, q, n, m, hi, device)()[2]
 
 
 def flyability_phase(torch, device="cuda"):
     """[flyability]: the counters set to 0, the 14 metrics of FLY_PAIRS +
     FLY_LONG_PAIRS synthetic pairs through ``calculate_trajectory_distances_batch``
-    on the card (two buckets: one launch of each kernel a bucket); wall ms,
-    pairs/s, each kernel's device ms per launch; then each kernel held to its
-    plain version on the card (DP family: EDR, LCSS exactly, the discrete
-    Frechet 1e-6, DTW and ERP 1e-5 relative; the Frechet 1e-5 relative),
-    also at the launch plans of the full-length buckets (the Frechet's 8
-    elements a thread, the DP's diagonals longer than its threads), with
-    ms (events), the plain version's ms and the bound at those inputs, and
-    SSPD / Hausdorff of the batch against the plain version on the card (1e-5
-    relative) and on the CPU. -> the kernels' JSON entries."""
+    on the card (two buckets: one launch of the DP kernel a bucket and the
+    rounds of the Frechet kernel's plan); wall ms, pairs/s, each kernel's
+    device ms per launch; each bucket's Frechet equal to the kernel at depth 1
+    on the same inputs, its ms a call beside depth 1's (events, in turns),
+    depth, rounds, blocks and ns a dependent step; then each kernel held to its plain version on
+    the card (DP family: EDR, LCSS exactly, the discrete Frechet 1e-6, DTW and
+    ERP 1e-5 relative; the Frechet 1e-5 relative), also at the launch plans
+    of the full-length buckets (each bucket's Frechet plan on its pairs cut to
+    FLY_BRANCH_ROWS rows, equal to depth 1 there too; the DP's diagonals
+    longer than its threads), with ms (events), the plain version's ms and
+    the bound at those inputs (the Frechet's over the cells its decisions
+    reach: the kernel's count, equal to the plain decision's at the check
+    inputs and the cuts), and SSPD / Hausdorff of the batch against the
+    plain version on the card (1e-5 relative) and on the CPU. -> the
+    kernels' JSON entries."""
     from tvqvae_tpu_torch.data.preprocess import AIRPORTS
     from tvqvae_tpu_torch.evaluation.flyability import distances as D
     from tvqvae_tpu_torch.ops import frechet_kernel, traj_dp_kernel
 
     rng = np.random.default_rng(20)
-    gens, sims = fly_tracks(rng, FLY_PAIRS, L, FLY_STRIDE)
-    long_gens, _ = fly_tracks(rng, FLY_LONG_PAIRS, L, 1)
-    gens += long_gens
-    sims += [g + rng.normal(0, 0.005, g.shape).astype(np.float32) for g in long_gens]
+    gens, sims = fly_batch(rng)
     adep = AIRPORTS["EHAM"]
     buckets = list(dict.fromkeys((D._bucket_size(len(a)), D._bucket_size(len(b)))
                                  for a, b in zip(gens, sims)))  # in the batch's launch order
@@ -2951,8 +3011,13 @@ def flyability_phase(torch, device="cuda"):
     out = D.calculate_trajectory_distances_batch(gens, sims, adep, device=device)
     wall = time.perf_counter() - t0
     launches = {"traj_dp": traj_dp_kernel.launch_count, "frechet": frechet_kernel.launch_count}
-    check(launches == {"traj_dp": len(buckets), "frechet": len(buckets)},
-          f"flyability launches {launches}, buckets {buckets}")
+    inputs = fly_bucket_inputs(torch, D, gens, sims, out, device)
+    check(list(inputs) == buckets, f"buckets {list(inputs)} against {buckets}")
+    plans = {key: fly_plan(frechet_kernel, len(idxs), int(m.max()), device)
+             for key, (idxs, _, _, _, m, _) in inputs.items()}
+    rounds = [plans[key].rounds for key in buckets]
+    check(launches == {"traj_dp": len(buckets), "frechet": sum(rounds)},
+          f"flyability launches {launches}, buckets {buckets}, the plans' rounds {rounds}")
     check(set(out) == set(D.KEYS) and all(len(v) == len(gens) for v in out.values()),
           f"flyability keys {sorted(out)}")
     bad = [k for k, v in out.items() if not np.isfinite(v).all()]
@@ -2961,16 +3026,56 @@ def flyability_phase(torch, device="cuda"):
           "Frechet above the discrete Frechet")
     by_kernel, busy = fly_device_ms(
         torch, lambda: D.calculate_trajectory_distances_batch(gens, sims, adep, device=device))
+    fr_launch_ms = by_kernel["frechet_kernel"]
+    check(device != "cuda" or len(fr_launch_ms) == sum(rounds),
+          f"profiled {len(fr_launch_ms)} Frechet launches, the plans give {sum(rounds)}")
+    edges = np.cumsum([0] + rounds)
+    fr_batch_ms = [float(sum(fr_launch_ms[a:b])) for a, b in zip(edges[:-1], edges[1:])]
     print(f"[flyability] {len(gens)} pairs in buckets {buckets}: {1e3 * wall:.1f} ms wall, "
           f"{len(gens) / wall:.1f} pairs/s; launches {launches}; device busy {busy:.2f} ms; "
-          + ", ".join(f"{k} ms a launch by bucket {[round(t, 3) for t in ts]}"
-                      for k, ts in by_kernel.items())
-          + "; medians " + ", ".join(f"{k} {np.median(out[k]):.6g}" for k in D.KEYS), flush=True)
+          f"traj_dp_kernel ms a launch by bucket {[round(t, 3) for t in by_kernel['traj_dp_kernel']]}"
+          f"; frechet_kernel ms a bucket (its rounds summed) {[round(t, 3) for t in fr_batch_ms]}"
+          "; medians " + ", ".join(f"{k} {np.median(out[k]):.6g}" for k in D.KEYS), flush=True)
+
+    # each bucket's Frechet: the batch's values, the plan's call and the
+    # sequential schedule (depth 1) on the same inputs, equal; each call's ms
+    # by CUDA events in turns (plan, depth 1, depth 1, plan)
+    per_bucket = {}
+    for key, (idxs, p, q, n, m, hi) in inputs.items():
+        plan = plans[key]
+        got = frechet_kernel.frechet(p, q, n, m, hi)
+        seq = frechet_kernel.frechet(p, q, n, m, hi, depth=1)
+        batch = torch.tensor([out["Frechet"][i] for i in idxs], dtype=torch.float32)
+        check(torch.equal(got.cpu(), batch), f"frechet of bucket {key}: the call differs from "
+                                             "the batch's values")
+        check(torch.equal(got, seq), f"frechet of bucket {key} at {tuple(plan)} differs from "
+                                     f"depth 1 by {float((got - seq).abs().max())}")
+        turns = {1: [], None: []}
+        for depth in (None, 1, 1, None):
+            turns[depth].append(time_ms(torch, lambda: frechet_kernel.frechet(
+                p, q, n, m, hi, depth=depth), iters=1, warmup=0))
+        ms, ms1 = float(np.mean(turns[None])), float(np.mean(turns[1]))
+        plan1 = fly_plan(frechet_kernel, len(idxs), int(m.max()), device, depth=1)
+        steps = int(n.max()) - 1 + frechet_kernel.active_threads(int(m.max()), plan.chunk) - 1
+        cells = fly_reached(torch, frechet_kernel, D, p, q, n, m, hi, device)
+        bound, by, ops = fly_bound(n.tolist(), m.tolist(), reached=cells)
+        share = float(cells.sum()) / (D.BISECTION_STEPS * float(((n - 1) * (m - 1)).sum()))
+        per_bucket[key] = dict(plan=plan, plan1=plan1, ms=ms, ms1=ms1, steps=steps, bound=bound,
+                               cells=int(cells.sum()))
+        print(f"[flyability] frechet bucket {key}, {len(idxs)} pairs: plan {plan._asdict()}: "
+              f"{ms:.3f} ms a call by events (turns {[round(t, 3) for t in turns[None]]}; "
+              f"{1e6 * ms / (plan.rounds * steps):.1f} ns per dependent round-step of "
+              f"{plan.rounds} x {steps}); depth 1 {plan1._asdict()}: {ms1:.3f} ms (turns "
+              f"{[round(t, 3) for t in turns[1]]}), equal; bound {bound:.5f} ms ({by}: "
+              f"{ops / 1e9:.4f} GFLOP over the {int(cells.sum())} cells that the 30 sequential "
+              f"decisions reach, {100 * share:.2f}% of their grids; no single PyTorch call "
+              f"computes it)", flush=True)
 
     # the DP kernel against its plain version, FLY_CHECK_PAIRS pairs of the
     # first bucket, and the Frechet kernel against its plain version at
-    # FLY_FRECHET_SHAPE: the plain Frechet's graph replays run on the card
-    # while the host issues the plain DP family's row loops
+    # FLY_FRECHET_SHAPE and at each bucket's plan on FLY_BRANCH_ROWS rows: the
+    # plain Frechet's graph replays run on the card while the host issues the
+    # plain DP family's row loops
     k = FLY_CHECK_PAIRS
     p = torch.from_numpy(np.stack([D._bucket_pad(x) for x in gens[:k]])).to(device)
     q = torch.from_numpy(np.stack([D._bucket_pad(x) for x in sims[:k]])).to(device)
@@ -2986,19 +3091,23 @@ def flyability_phase(torch, device="cuda"):
     hi = traj_dp_kernel.traj_dp(fp, fq, fn_, fm, adep, [("discret_frechet", "euclidean", 0.0)])
     hi = hi[:, 0].contiguous()
     fr = frechet_kernel.frechet(fp, fq, fn_, fm, hi)
-    # the Frechet's plan of 8 elements a thread: pairs of FLY_CHUNK8_ROWS x L
-    # points in their bucket, as the (5120, 5120) bucket launches it
-    cg, cs = fly_tracks(rng, k, L, 1)
-    pick = np.linspace(0, L - 1, FLY_CHUNK8_ROWS).round().astype(int)
-    cp = torch.from_numpy(np.stack([D._bucket_pad(x[pick]) for x in cg])).to(device)
-    cq = torch.from_numpy(np.stack([D._bucket_pad(x) for x in cs])).to(device)
-    cn, cm = [FLY_CHUNK8_ROWS] * k, [L] * k
-    c_plan = frechet_kernel.launch_plan(L)
-    check(device != "cuda" or c_plan[1] == frechet_kernel.CHUNKS[-1],
-          f"the Frechet's plan at {L} columns is {c_plan}, not {frechet_kernel.CHUNKS[-1]} a thread")
-    c_hi = traj_dp_kernel.traj_dp(cp, cq, cn, cm, adep, [("discret_frechet", "euclidean", 0.0)])
-    c_hi = c_hi[:, 0].contiguous()
-    c_fr = frechet_kernel.frechet(cp, cq, cn, cm, c_hi)
+    check(torch.equal(fr, frechet_kernel.frechet(fp, fq, fn_, fm, hi, depth=1)),
+          f"frechet at {FLY_FRECHET_SHAPE} differs from depth 1")
+    fr_cells = fly_reached(torch, frechet_kernel, D, fp, fq, fn_, fm, hi, device)
+    # each bucket's plan on its pairs cut to FLY_BRANCH_ROWS of p's points
+    pick = np.linspace(0, L - 1, FLY_BRANCH_ROWS).round().astype(int)
+    branch = {}
+    for key, (idxs, _, bq, _, bm, _) in inputs.items():
+        bp = torch.from_numpy(np.stack([D._bucket_pad(gens[i][pick]) for i in idxs])).to(device)
+        bn = [FLY_BRANCH_ROWS] * len(idxs)
+        bhi = traj_dp_kernel.traj_dp(bp, bq, bn, bm, adep,
+                                     [("discret_frechet", "euclidean", 0.0)])[:, 0].contiguous()
+        bgot = frechet_kernel.frechet(bp, bq, bn, bm, bhi, plan=plans[key])
+        check(torch.equal(bgot, frechet_kernel.frechet(bp, bq, bn, bm, bhi, depth=1)),
+              f"frechet at bucket {key}'s plan {tuple(plans[key])} on {FLY_BRANCH_ROWS} rows "
+              "differs from depth 1")
+        branch[key] = (bp, bq, bn, bm, bhi, bgot,
+                       fly_reached(torch, frechet_kernel, D, bp, bq, bn, bm, bhi, device))
     # the DP's diagonals longer than a block: pairs of FLY_WIDE x FLY_WIDE points
     wg, ws = fly_tracks(rng, k, FLY_WIDE, 1)
     wp = torch.from_numpy(np.stack([D._bucket_pad(x) for x in wg])).to(device)
@@ -3009,15 +3118,16 @@ def flyability_phase(torch, device="cuda"):
           f"the DP's plan at {FLY_WIDE} x {FLY_WIDE} has {w_threads} threads: no strided diagonal")
     w_got = traj_dp_kernel.traj_dp(wp, wq, wn, wn, adep, spec)
     torch.cuda.synchronize()
-    finish_chunk8 = frechet_plain_start(torch, D, cp, cq, c_hi.clone(), device)
-    finish_frechet = frechet_plain_start(torch, D, fp, fq, hi.clone(), device)
+    finish_branch = {key: frechet_plain_start(torch, D, bp, bq, bn, bm, bhi.clone(), device)
+                     for key, (bp, bq, bn, bm, bhi, _, _) in branch.items()}
+    finish_frechet = frechet_plain_start(torch, D, fp, fq, fn_, fm, hi.clone(), device)
     t0 = time.perf_counter()
     want = D.dp_metrics(p, q, n, m, adep, spec)
     torch.cuda.current_stream().synchronize()
     dp_plain_ms = 1e3 * (time.perf_counter() - t0)
     w_want = D.dp_metrics(wp, wq, wn, wn, adep, spec)
-    fr_plain, fr_plain_ms = finish_frechet()
-    c_plain, _ = finish_chunk8()
+    fr_plain, fr_plain_ms, fr_plain_cells = finish_frechet()
+    branch_plain = {key: fin() for key, fin in finish_branch.items()}
 
     def dp_rels(got, want, what):
         """Max relative gap of each DP variant; LCSS and EDR exactly, the
@@ -3059,12 +3169,28 @@ def flyability_phase(torch, device="cuda"):
 
     fr_rel = float(((fr - fr_plain).abs() / fr_plain.abs()).max())
     check(fr_rel <= 1e-5, f"frechet kernel differs from the plain version by {fr_rel}")
-    c_rel = float(((c_fr - c_plain).abs() / c_plain.abs()).max())
-    check(c_rel <= 1e-5, f"frechet kernel at {c_plan[1]} elements a thread differs from the "
-                         f"plain version by {c_rel}")
+    fr_err = float((fr - fr_plain).abs().max())
+    # the cells the kernel counts reached at each sequential step, against
+    # the plain decision's count: the work behind the bound
+    check(torch.equal(fr_cells, fr_plain_cells.cpu()),
+          f"frechet reached cells at {FLY_FRECHET_SHAPE}: kernel {fr_cells.sum(0).tolist()}, "
+          f"plain {fr_plain_cells.sum(0).tolist()}")
+    branch_rel = {}
+    for key, (_, _, _, _, _, bgot, bcells) in branch.items():
+        want_b, _, want_cells = branch_plain[key]
+        branch_rel[key] = float(((bgot - want_b).abs() / want_b.abs()).max())
+        check(branch_rel[key] <= 1e-5, f"frechet kernel at bucket {key}'s plan "
+                                       f"{tuple(plans[key])} differs from the plain version by "
+                                       f"{branch_rel[key]}")
+        check(torch.equal(bcells, want_cells.cpu()),
+              f"frechet reached cells at bucket {key} on {FLY_BRANCH_ROWS} rows: kernel "
+              f"{bcells.sum(0).tolist()}, plain {want_cells.sum(0).tolist()}")
+        fr_err = max(fr_err, float((bgot - want_b).abs().max()))
     fr_ms = time_ms(torch, lambda: frechet_kernel.frechet(fp, fq, fn_, fm, hi), iters=3, warmup=1)
-    fr_bound, fr_by, fr_ops = fly_bound(fn_, fm)
-    rows = frechet_kernel.STEPS * (FLY_FRECHET_SHAPE[0] - 1)
+    fr_bound, fr_by, fr_ops = fly_bound(fn_, fm, reached=fr_cells)
+    fr_plan = fly_plan(frechet_kernel, k, FLY_FRECHET_SHAPE[1], device)
+    fr_steps = FLY_FRECHET_SHAPE[0] - 1 + frechet_kernel.active_threads(FLY_FRECHET_SHAPE[1],
+                                                                        fr_plan.chunk) - 1
     print(f"[flyability] traj_dp vs plain on {k} pairs at {tuple(p.shape[1:2]) + tuple(q.shape[1:2])} "
           f"(true {n.tolist()} x {m.tolist()}): max rel by metric "
           + ", ".join(f"{key} {r:.3g}" for key, r in rels.items())
@@ -3075,16 +3201,22 @@ def flyability_phase(torch, device="cuda"):
           f"{tuple(wp.shape[1:2]) + tuple(wq.shape[1:2])} (true {FLY_WIDE} x {FLY_WIDE}, "
           f"{w_threads} threads): max rel by metric "
           + ", ".join(f"{key} {r:.3g}" for key, r in w_rels.items()), flush=True)
-    print(f"[flyability] frechet vs plain on {k} pairs at {FLY_FRECHET_SHAPE}: max rel {fr_rel:.3g}, "
-          f"{fr_ms:.3f} ms a launch ({1e6 * fr_ms / rows:.1f} ns per dependent row of {rows}), "
-          f"plain {fr_plain_ms:.1f} ms (its decision replayed from a CUDA graph, beside the "
-          f"plain DP family), bound "
-          f"{fr_bound:.5f} ms ({fr_by}: {fr_ops / 1e9:.3f} GFLOP, no single PyTorch call computes "
-          f"it)", flush=True)
-    print(f"[flyability] frechet vs plain at {c_plan[1]} elements a thread on {k} pairs at "
-          f"{tuple(cp.shape[1:2]) + tuple(cq.shape[1:2])} (true {FLY_CHUNK8_ROWS} x {L}, "
-          f"{c_plan[0]} threads): max rel {c_rel:.3g}", flush=True)
+    print(f"[flyability] frechet vs plain on {k} pairs at {FLY_FRECHET_SHAPE}, plan "
+          f"{tuple(fr_plan)}: max rel {fr_rel:.3g}, equal to depth 1; {fr_ms:.3f} ms a call "
+          f"({1e6 * fr_ms / (fr_plan.rounds * fr_steps):.1f} ns per dependent round-step of "
+          f"{fr_plan.rounds} x {fr_steps}), plain {fr_plain_ms:.1f} ms (its decision replayed "
+          f"from a CUDA graph, beside the plain DP family), bound {fr_bound:.5f} ms ({fr_by}: "
+          f"{fr_ops / 1e9:.4f} GFLOP over {int(fr_cells.sum())} reached cells, the kernel's "
+          f"count equal to the plain decision's; no single PyTorch call computes it)",
+          flush=True)
+    for key, (bp, bq, _, _, _, _, bcells) in branch.items():
+        print(f"[flyability] frechet vs plain at bucket {key}'s plan {tuple(plans[key])} on "
+              f"{bp.shape[0]} pairs at {tuple(bp.shape[1:2]) + tuple(bq.shape[1:2])} (true "
+              f"{FLY_BRANCH_ROWS} x {int(inputs[key][4].max())}): max rel {branch_rel[key]:.3g}, "
+              f"equal to depth 1; {int(bcells.sum())} reached cells, equal to the plain count",
+              flush=True)
     common = {"route": "cuda", "library_ms": None}
+    by_bucket = lambda f: {str(key): f(v) for key, v in per_bucket.items()}  # noqa: E731
     return [
         {"name": "traj_dp", "source": "tvqvae_tpu_torch/csrc/traj_dp.cu",
          "replaces": "tvqvae_tpu/evaluation/flyability/distances.py:188",
@@ -3096,11 +3228,16 @@ def flyability_phase(torch, device="cuda"):
         {"name": "frechet_decision", "source": "tvqvae_tpu_torch/csrc/frechet_decision.cu",
          "replaces": "tvqvae_tpu/evaluation/flyability/distances.py:406",
          "launches": launches["frechet"], "launches_by_path": {"flyability": launches["frechet"]},
-         "max_abs_err": max(float((fr - fr_plain).abs().max()),
-                            float((c_fr - c_plain).abs().max())),
-         "ms": fr_ms, "plain_ms": fr_plain_ms,
+         "max_abs_err": fr_err, "ms": fr_ms, "plain_ms": fr_plain_ms,
          "bound_ms": fr_bound, "bound_by": fr_by, "shape_pairs_PQ": [k, *FLY_FRECHET_SHAPE],
-         "device_ms_by_bucket": dict(zip(map(str, buckets), by_kernel["frechet_kernel"])),
+         "device_ms_by_bucket": dict(zip(map(str, buckets), fr_batch_ms)),
+         "call_ms_by_bucket": by_bucket(lambda v: v["ms"]),
+         "depth1_ms_by_bucket": by_bucket(lambda v: v["ms1"]),
+         "depth_by_bucket": by_bucket(lambda v: v["plan"].depth),
+         "rounds_by_bucket": by_bucket(lambda v: v["plan"].rounds),
+         "plan_by_bucket": by_bucket(lambda v: v["plan"]._asdict()),
+         "bound_ms_by_bucket": by_bucket(lambda v: v["bound"]),
+         "reached_cells_by_bucket": by_bucket(lambda v: v["cells"]),
          **common},
     ]
 

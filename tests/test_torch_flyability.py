@@ -14,6 +14,8 @@ from JAX's float64 value plus 1e-4 of it (``test_cross_track_conditioning``
 measures that noise).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -232,6 +234,81 @@ def test_frechet_known_cases():
     p = np.array([[0, 0], [5, 1], [10, 0]], np.float64)
     q = np.array([[0, 0.2], [10, 0.2]], np.float64)
     assert float(D.frechet(p, q)) <= float(D.discret_frechet(p, q)) + 1e-6
+
+
+def _bisect_batch(ps, qs):
+    """(p, q, n, m, hi) of pairs of any lengths for ``frechet_bisect``:
+    float32, padded by repeating the last point, hi the discrete Frechet."""
+    P, Q = max(len(x) for x in ps), max(len(x) for x in qs)
+    pad = lambda x, L: np.concatenate([x, np.repeat(x[-1:], L - len(x), 0)])  # noqa: E731
+    p = torch.from_numpy(np.stack([pad(np.asarray(x, np.float32), P) for x in ps]))
+    q = torch.from_numpy(np.stack([pad(np.asarray(x, np.float32), Q) for x in qs]))
+    n, m = torch.tensor([len(x) for x in ps]), torch.tensor([len(x) for x in qs])
+    return p, q, n, m, D._discret_frechet_rows(D._eucl_pdist(p, q), n, m)
+
+
+def _bisect_case(case):
+    """A batch for ``frechet_bisect``: ``random`` seeded walks of mixed true
+    lengths; ``known`` the pairs of test_frechet_known_cases; ``collapse``
+    brackets that float32 closes within a few steps (identical tracks,
+    offsets of 1-3 ulps)."""
+    if case == "random":
+        rng = np.random.default_rng(12)
+        return _bisect_batch([_walk(rng, n) for n in (24, 9, 2, 24)],
+                             [_walk(rng, m) for m in (17, 17, 5, 2)])
+    if case == "known":
+        t = np.linspace(0, 2 * np.pi, 60)
+        a = np.stack([np.cos(t), np.sin(t)], axis=1)
+        rng = np.random.default_rng(0)
+        return _bisect_batch(
+            [[[0, 0], [0, 10]], a, np.cumsum(rng.normal(0, 0.1, (25, 2)), axis=0),
+             [[0, 0], [5, 1], [10, 0]]],
+            [[[1, 0], [1, 10]], a + np.array([0.3, 0.4]),
+             np.cumsum(rng.normal(0, 0.1, (18, 2)), axis=0), [[0, 0.2], [10, 0.2]]])
+    p = _walk(np.random.default_rng(4), 20)
+    shifted = [p]
+    for _ in range(3):
+        shifted.append(np.nextafter(shifted[-1], np.float32(np.inf)))
+    return _bisect_batch([p] * 4, shifted)
+
+
+@functools.lru_cache(maxsize=None)
+def _bisect_depth1(case):
+    return D.frechet_bisect(*_bisect_case(case))
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("case", ["random", "known", "collapse"])
+def test_frechet_bisect_depths_equal_depth1(case, depth):
+    """The kernel's schedule in the plain version: rounds of ``depth``
+    levels of the bisection tree, decided at once, give depth 1's values
+    bit for bit."""
+    got = D.frechet_bisect(*_bisect_case(case), depth=depth)
+    assert torch.equal(got, _bisect_depth1(case)), (case, depth, got, _bisect_depth1(case))
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 5, 7])
+def test_bisection_round_equals_sequential_steps(levels):
+    """``bisection_round`` against ``levels`` sequential steps, under a
+    monotone decision and under an arbitrary one (a hash of eps's bits):
+    the tree's walk visits exactly the sequential midpoints."""
+    rng = np.random.default_rng(levels)
+    lo = torch.from_numpy(rng.uniform(0, 1, 64).astype(np.float32))
+    hi = lo + torch.from_numpy(rng.uniform(0, 1, 64).astype(np.float32))
+    hi[:4] = lo[:4]  # a closed bracket
+    hi[4:8] = torch.nextafter(lo[4:8], torch.tensor(np.inf))  # one ulp
+    cut = torch.from_numpy(rng.uniform(0, 2, 64).astype(np.float32))
+    decisions = [lambda eps, c: eps >= c,
+                 lambda eps, c: ((eps.view(torch.int32).to(torch.int64) * 2654435761)
+                                 % 2 ** 32) >= 2 ** 31]
+    for decide in decisions:
+        want_lo, want_hi = lo.clone(), hi.clone()
+        for _ in range(levels):
+            mid = 0.5 * (want_lo + want_hi)
+            ok = decide(mid, cut)
+            want_lo, want_hi = torch.where(ok, want_lo, mid), torch.where(ok, mid, want_hi)
+        got = D.bisection_round(lo, hi, levels, lambda eps: decide(eps, cut[:, None]))
+        assert torch.equal(got[0], want_lo) and torch.equal(got[1], want_hi)
 
 
 def _sequential(combine, elems):

@@ -293,7 +293,7 @@ def test_dropout_is_inverted_and_drawn_from_the_generator():
         assert not torch.equal(fe(xs, True, torch.Generator().manual_seed(0)), fe(xs))
 
 
-@pytest.mark.parametrize("leaves", ["large", "small"])
+@pytest.mark.parametrize("leaves", ["large", "small", "per_leaf"])
 def test_init_weights_draws_flax_distributions(fe_draws, leaves):
     """``large``: each leaf of >= 256 elements, its 16 draws a side pooled:
     std within 5% of flax's, kernels inside the +-2 truncation. ``small``:
@@ -301,8 +301,10 @@ def test_init_weights_draws_flax_distributions(fe_draws, leaves):
     the 16 draws of every leaf of one kind and shape pooled (>= 512 values
     a side): a two-sample Kolmogorov-Smirnov test against flax's pool at
     p >= 1e-3, the std within 4 standard errors (4/sqrt(n)) of flax's,
-    kernels inside the truncation. Either way norms sit at 1, biases at 0
-    and Snake ``a`` in [0.2, 0.5]."""
+    kernels inside the truncation. ``per_leaf``: the same test on each of
+    those small leaves alone, its 16 draws a side, so that one leaf with
+    another initialiser cannot hide in a pool of its kind. Either way norms
+    sit at 1, biases at 0 and Snake ``a`` in [0.2, 0.5]."""
     from scipy.stats import ks_2samp
 
     draws, _ = fe_draws
@@ -330,17 +332,18 @@ def test_init_weights_draws_flax_distributions(fe_draws, leaves):
         if leaves == "large" and r[0].numel() >= 256:
             assert abs(o.std().item() - r.std().item()) <= 0.05 * r.std().item(), k
             checked += 1
-        elif leaves == "small" and r[0].numel() < 256:
-            pool = pools.setdefault((k.rsplit(".", 1)[-1], tuple(r.shape[1:])), ([], []))
+        elif leaves != "large" and r[0].numel() < 256:
+            key = (k.rsplit(".", 1)[-1], tuple(r.shape[1:])) if leaves == "small" else k
+            pool = pools.setdefault(key, ([], []))
             pool[0].append(o.flatten())
             pool[1].append(r.flatten())
     for kind, (o, r) in pools.items():
         o, r = torch.cat(o).numpy(), torch.cat(r).numpy()
-        assert len(o) >= 512, kind
+        assert len(o) >= (512 if leaves == "small" else 16), kind
         assert ks_2samp(o, r).pvalue >= 1e-3, kind
         assert abs(o.std() / r.std() - 1) <= 4 / np.sqrt(len(o)), kind
         checked += 1
-    assert checked >= {"large": 40, "small": 9}[leaves]
+    assert checked >= {"large": 40, "small": 9, "per_leaf": 9}[leaves]
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ exactly (integer counts over bit-equal costs); the discrete Frechet exactly
 kernel adds along anti-diagonals, the plain version through a row scan);
 the continuous Frechet 1e-5 relative (the same decisions over bit-equal free
 intervals; the kernel runs the true lengths, the plain version the bucket
-padding). The launch plans are pinned on the CPU.
+padding), and exactly between its own plans (every depth and block shape
+decides the same midpoints). The launch plans are pinned on the CPU.
 """
 
 import numpy as np
@@ -59,15 +60,110 @@ def test_dp_launch_plan(nmax, mmax, threads, smem):
     assert smem <= traj_dp_kernel.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("mmax,threads,chunk", [
-    (2, 32, 1), (33, 32, 1), (580, 608, 1), (1025, 1024, 1), (1026, 544, 2),
-    (4633, 608, 8), (5120, 640, 8), (8193, 1024, 8),
+def _per_sm(threads, chunk, k):
+    """Blocks an H100 SM holds at the build's most registers a thread (64:
+    __launch_bounds__(1024)): at most 2048 threads, 64K registers, 32 blocks."""
+    return min(32, 2048 // threads, 65536 // (64 * threads))
+
+
+@pytest.mark.parametrize("B,mmax,sms,depth,plan", [
+    # the [flyability] batch's buckets on an H100's 132 SMs
+    (2, 4633, 132, None, (6, 1, 5, 928, 5, 126)),
+    (64, 580, 132, None, (2, 2, 1, 608, 15, 128)),
+    # their sequential schedules, and a forced depth
+    (2, 4633, 132, 1, (1, 1, 5, 928, 30, 2)),
+    (64, 580, 132, 1, (1, 1, 1, 608, 30, 64)),
+    (64, 580, 132, 3, (3, 2, 2, 320, 10, 256)),
+    # short rows: small blocks, many to an SM
+    (2, 512, 132, None, (6, 1, 1, 512, 5, 126)),
+    (1, 2, 132, None, (6, 1, 1, 32, 5, 63)),
+    (130, 33, 132, None, (6, 2, 1, 32, 5, 4160)),
+    # more pairs than one wave of the widest blocks: narrower blocks, no speculation
+    (500, 580, 132, None, (1, 1, 3, 224, 30, 500)),
+    # fewer SMs: a shallower tree, or narrower blocks
+    (2, 4633, 66, None, (5, 1, 5, 928, 6, 62)),
+    (64, 580, 16, None, (1, 1, 3, 224, 30, 64)),
+    # the longest rows; more blocks than any plan fits in one wave
+    (2, 8193, 132, None, (6, 1, 8, 1024, 5, 126)),
+    (4000, 8193, 132, None, (1, 1, 8, 1024, 30, 4000)),
 ])
-def test_frechet_launch_plan(mmax, threads, chunk):
-    assert frechet_kernel.launch_plan(mmax) == (threads, chunk)
-    assert threads * chunk >= mmax - 1 and threads % 32 == 0 and threads <= 1024
+def test_frechet_launch_plan(B, mmax, sms, depth, plan):
+    """The fill rule at an H100's occupancy (``_per_sm``) on ``sms`` SMs."""
+    got = frechet_kernel.launch_plan(B, mmax, sms, _per_sm, depth)
+    assert tuple(got) == plan
+    frechet_kernel.check_plan(got, mmax)
+    assert got.k <= 2 ** got.depth - 1
+    assert got.rounds == len(frechet_kernel.round_levels(got.depth))
+    assert got.blocks == B * -(-(2 ** got.depth - 1) // got.k)
+    levels = frechet_kernel.round_levels(got.depth)
+    assert sum(levels) == frechet_kernel.STEPS and max(levels) == got.depth
     with pytest.raises(ValueError):
-        frechet_kernel.launch_plan(8194)
+        frechet_kernel.launch_plan(B, 8194, sms, _per_sm)
+    with pytest.raises(ValueError):
+        frechet_kernel.launch_plan(B, mmax, sms, _per_sm, frechet_kernel.MAX_DEPTH + 1)
+    with pytest.raises(ValueError):
+        frechet_kernel.launch_plan(0, mmax, sms, _per_sm)
+
+
+@pytest.mark.parametrize("plan,mmax", [
+    ((1, 1, 1, 600, 30, 2), 580),    # threads not whole warps
+    ((1, 1, 8, 2048, 30, 2), 8193),  # more threads than a block holds
+    ((1, 1, 1, 512, 30, 2), 580),    # the row not covered
+    ((0, 1, 1, 608, 30, 2), 580),    # no depth
+    ((7, 1, 1, 608, 5, 2), 580),     # past MAX_DEPTH
+    ((2, 2, 5, 928, 15, 2), 4633),   # no such instance
+    ((2, 3, 1, 608, 15, 2), 580),    # no such instance
+])
+def test_frechet_check_plan_rejects(plan, mmax):
+    """A plan given to ``frechet`` that the kernel cannot run raises."""
+    with pytest.raises(ValueError):
+        frechet_kernel.check_plan(frechet_kernel.Plan(*plan), mmax)
+
+
+def test_frechet_plain_reached_cells():
+    """The plain decision's count of reached cells, the twin of the
+    kernel's ``reached_cells``: against a cell-by-cell walk of the same
+    free intervals (float64 numpy), at a threshold below, at and above the
+    distance; zero where the endpoints fail."""
+    p, q, n, m = _batch([(9, 7), (12, 12), (5, 12)], seed=8, step=0.05)
+    f = D.frechet_bisect(p, q, n, m, D._discret_frechet_rows(D._eucl_pdist(p, q), n, m))
+    pp, qp = D._repeat_last(p, n), D._repeat_last(q, m)
+    for scale in (0.5, 1.0, 1.5):
+        eps = f * scale
+        ok, cells = D._frechet_decision(pp, qp, eps, (n, m))
+        assert torch.equal(ok, D._frechet_decision(pp, qp, eps))
+        for b in range(len(n)):
+            nb, mb, e = int(n[b]), int(m[b]), float(eps[b])
+
+            def free(a0, a1, c):
+                lo, hi = D._free_intervals(torch.tensor(a0), torch.tensor(a1), torch.tensor(c),
+                                           torch.tensor(e))
+                return float(lo), float(hi)
+
+            P, Q = pp[b, :nb].numpy(), qp[b, :mb].numpy()
+            ends = max(np.sum((P[0] - Q[0]) ** 2), np.sum((P[-1] - Q[-1]) ** 2)) <= np.float32(e) ** 2
+            rv = [[np.inf] * mb for _ in range(nb - 1)]  # R_V(i, j) lo
+            rh = [[np.inf] * (mb - 1) for _ in range(nb)]  # R_H(i, j) lo
+            for i in range(nb - 1):
+                lo, hi = free(P[i], P[i + 1], Q[0])
+                if lo <= 0 <= hi and (i == 0 or rv[i - 1][0] == 0 and free(P[i - 1], P[i], Q[0]) == (0, 1)):
+                    rv[i][0] = 0.0
+            for j in range(mb - 1):
+                lo, hi = free(Q[j], Q[j + 1], P[0])
+                if lo <= 0 <= hi and (j == 0 or rh[0][j - 1] == 0 and free(Q[j - 1], Q[j], P[0]) == (0, 1)):
+                    rh[0][j] = 0.0
+            want = 0
+            for i in range(nb - 1):
+                for j in range(mb - 1):
+                    x, y = rv[i][j], rh[i][j]
+                    want += x < np.inf or y < np.inf
+                    a, h = free(P[i], P[i + 1], Q[j + 1])
+                    tlo, thi = free(Q[j], Q[j + 1], P[i + 1])
+                    rv[i][j + 1] = (a if a <= h else np.inf) if y < np.inf else (
+                        max(a, x) if a <= h and x <= h else np.inf)
+                    t = tlo if x < np.inf else (max(tlo, y) if y < np.inf else np.inf)
+                    rh[i + 1][j] = t if t <= thi else np.inf
+            assert int(cells[b]) == (want if ends else 0), (scale, b)
 
 
 def test_cells_counts_the_true_grids():
@@ -145,14 +241,19 @@ def test_wrappers_reject_bad_lengths_on_card(card):
     assert (traj_dp_kernel.launch_count, frechet_kernel.launch_count) == before
 
 
-def _frechet_check(p, q, n, m):
+def _frechet_check(p, q, n, m, plan=None):
+    """The kernel at the card's plan (or ``plan``): one launch a round, equal
+    to the sequential schedule (depth 1), within 1e-5 of the plain version."""
     pc, qc = p.cuda(), q.cuda()
     spec = [("discret_frechet", "euclidean", 0.0)]
     hi = traj_dp_kernel.traj_dp(pc, qc, n, m, G, spec)[:, 0].contiguous()
+    if plan is None:
+        plan = frechet_kernel.card_plan(len(n), int(m.max()), "cuda")
     before = frechet_kernel.launch_count
-    got = frechet_kernel.frechet(pc, qc, n, m, hi)
+    got = frechet_kernel.frechet(pc, qc, n, m, hi, plan=plan)
     torch.cuda.synchronize()
-    assert frechet_kernel.launch_count == before + 1
+    assert frechet_kernel.launch_count == before + plan.rounds
+    assert torch.equal(got, frechet_kernel.frechet(pc, qc, n, m, hi, depth=1))
     want = D.frechet_bisect(pc, qc, n.cuda(), m.cuda(), hi)
     torch.testing.assert_close(got.cpu(), want.cpu(), rtol=1e-5, atol=0)
     assert bool((got <= hi + 1e-6).all())
@@ -170,13 +271,61 @@ def test_frechet_kernel_matches_plain_on_card(shapes, card):
 
 @pytest.mark.gpu
 def test_frechet_kernel_chunk8_matches_plain_on_card(card):
-    """The plan of 8 row elements a thread, which the full-length buckets
-    take: a (48, 4633) pair in bucket (64, 5120). The plain version's cost
-    grows with p's rows, so this runs in seconds."""
+    """The wide rows' plans: a (48, 4633) pair in bucket (64, 5120) at 8 row
+    elements a thread (the most, which rows past 7169 edges take) and at the
+    plan's 5, which the (5120, 5120) bucket takes too. The plain version's
+    cost grows with p's rows, so this runs in seconds."""
     p, q, n, m = _batch([(48, 4633)], seed=20, step=0.01)
     assert tuple(p.shape[1:2] + q.shape[1:2]) == (64, 5120)
-    assert frechet_kernel.launch_plan(4633) == (608, frechet_kernel.CHUNKS[-1]) == (608, 8)
+    chunk8 = frechet_kernel.Plan(6, 1, 8, frechet_kernel.threads_for(4633, 8), 5, 63)
+    assert frechet_kernel.CHUNKS[-1] == 8 and chunk8.threads == 608
+    _frechet_check(p, q, n, m, chunk8)
+    plan = frechet_kernel.card_plan(1, 4633, "cuda")
+    assert (plan.depth, plan.k, plan.chunk, plan.threads) == (6, 1, 5, 928)
+    assert frechet_kernel.card_plan(2, 4633, "cuda") == plan._replace(blocks=126)
     _frechet_check(p, q, n, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", range(1, 7))
+def test_frechet_kernel_every_depth_equal_on_card(depth, card):
+    """Every depth the plan can choose gives the sequential schedule's
+    values bit for bit, at every block shape the kernel has."""
+    assert frechet_kernel.MAX_DEPTH == 6
+    p, q, n, m = _batch([(33, 64), (64, 33), (40, 40), (2, 9), (9, 2)], seed=30)
+    pc, qc = p.cuda(), q.cuda()
+    hi = traj_dp_kernel.traj_dp(pc, qc, n, m, G, [("discret_frechet", "euclidean", 0.0)])
+    hi = hi[:, 0].contiguous()
+    ref = frechet_kernel.frechet(pc, qc, n, m, hi, depth=1)
+    assert torch.equal(frechet_kernel.frechet(pc, qc, n, m, hi, depth=depth), ref)
+    for chunk, k in frechet_kernel.INSTANCES:  # every block shape at this depth
+        if k <= 2 ** depth - 1:
+            plan = frechet_kernel.Plan(depth, k, chunk, frechet_kernel.threads_for(64, chunk),
+                                       len(frechet_kernel.round_levels(depth)), 0)
+            assert torch.equal(frechet_kernel.frechet(pc, qc, n, m, hi, plan=plan), ref), plan
+
+
+@pytest.mark.gpu
+def test_frechet_reached_cells_match_plain_on_card(card):
+    """The kernel's count of the cells each sequential decision reaches (the
+    work behind chip_smoke.py's bound) equals the plain decision's, step by
+    step, and its steps end at the kernel's distance."""
+    p, q, n, m = _batch([(33, 64), (64, 33), (40, 40), (2, 9), (9, 2)], seed=31)
+    pc, qc, nc, mc = p.cuda(), q.cuda(), n.cuda(), m.cuda()
+    hi = traj_dp_kernel.traj_dp(pc, qc, n, m, G, [("discret_frechet", "euclidean", 0.0)])
+    hi = hi[:, 0].contiguous()
+    got = frechet_kernel.reached_cells(pc, qc, n, m, hi)
+    lo = torch.maximum(torch.sqrt(D._sq_dist(pc[:, 0], qc[:, 0])),
+                       torch.sqrt(D._sq_dist(pc[:, -1], qc[:, -1])))
+    h, want = hi.clone(), []
+    for _ in range(frechet_kernel.STEPS):
+        eps = 0.5 * (lo + h)
+        ok, cells = D._frechet_decision(pc, qc, eps, (nc, mc))
+        want.append(cells)
+        lo, h = torch.where(ok, lo, eps), torch.where(ok, eps, h)
+    assert torch.equal(got, torch.stack(want))
+    assert bool((got > 0).any())
+    assert torch.equal(h, frechet_kernel.frechet(pc, qc, n, m, hi))
 
 
 @pytest.mark.gpu
@@ -193,16 +342,19 @@ def test_frechet_kernel_known_cases_on_card(card):
 
 @pytest.mark.gpu
 def test_batch_entry_point_launches_the_kernels_on_card(card):
-    """One launch of each kernel a bucket, the CPU's values."""
+    """One launch of the DP kernel a bucket and the rounds of the Frechet's
+    plan, the CPU's values."""
     rng = np.random.default_rng(5)
     gens = [np.cumsum(rng.normal(0, 0.03, (n, 2)), 0) + [48, 5] for n in (14, 25, 40, 300)]
     sims = [np.cumsum(rng.normal(0, 0.03, (m, 2)), 0) + [48, 5] for m in (18, 25, 9, 35)]
-    buckets = len({(D._bucket_size(len(a)), D._bucket_size(len(b))) for a, b in zip(gens, sims)})
-    assert buckets == 3
+    groups = D.shape_buckets(gens, sims, "cpu")
+    assert len(groups) == 3
+    rounds = sum(frechet_kernel.card_plan(len(idxs), int(m.max()), "cuda").rounds
+                 for idxs, _, _, _, m in groups.values())
     before = (traj_dp_kernel.launch_count, frechet_kernel.launch_count)
     card_out = D.calculate_trajectory_distances_batch(gens, sims, G, device="cuda")
     assert (traj_dp_kernel.launch_count, frechet_kernel.launch_count) == \
-        (before[0] + buckets, before[1] + buckets)
+        (before[0] + len(groups), before[1] + rounds)
     cpu_out = D.calculate_trajectory_distances_batch(gens, sims, G, device="cpu")
     for k in D.KEYS:
         # the spherical cross-track formula amplifies the last-ulp differences

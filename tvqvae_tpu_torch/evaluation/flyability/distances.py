@@ -23,13 +23,15 @@ package's semantics letter for letter:
     the true (n-1, m-1) corner.
 
 ``calculate_trajectory_distances_batch`` scores a list of pairs in shape
-buckets. On the card each bucket takes two kernel launches: the DP family
-(``ops/traj_dp_kernel.py``, ``csrc/traj_dp.cu``) and the continuous Fréchet
-(``ops/frechet_kernel.py``, ``csrc/frechet_decision.cu``), which starts from
-the first kernel's discrete Fréchet. SSPD and Hausdorff are batched distance
-matrices in plain PyTorch on either device. On CPU tensors the bucket runs
-the kernels' plain versions below (``dp_metrics``, ``frechet_bisect``); on
-the card the plain loops never run.
+buckets. On the card each bucket takes one launch of the DP family
+(``ops/traj_dp_kernel.py``, ``csrc/traj_dp.cu``) and the rounds of the
+continuous Fréchet (``ops/frechet_kernel.py``, ``csrc/frechet_decision.cu``:
+ceil(30 / depth) launches, the depth from its launch plan), which starts
+from the first kernel's discrete Fréchet. SSPD and Hausdorff are batched
+distance matrices in plain PyTorch on either device. On CPU tensors the
+bucket runs the kernels' plain versions below (``dp_metrics``,
+``frechet_bisect`` at depth 1, whose ``bisection_round`` is the kernel's
+round); on the card the plain loops never run.
 """
 
 import math
@@ -475,12 +477,16 @@ def _sq_dist(a, b):
     return d0 * d0 + d1 * d1
 
 
-def _frechet_decision(p, q, eps):
+def _frechet_decision(p, q, eps, lengths=None):
     """Monotone free-space reachability (Alt & Godau): is F(p, q) <= eps?
     p (B, P, 2), q (B, Q, 2), eps (B,) -> (B,) bool. Rows over p's segments;
     in a row the reachable-lo propagation along q is one associative scan of
     the (r, c, A, C, F) maps. The free intervals of every row are computed
-    at once (the same elementwise formula as the JAX package's per row)."""
+    at once (the same elementwise formula as the JAX package's per row).
+    With ``lengths`` = (n, m), the true lengths (B,), -> (that, (B,) int64):
+    also the cells (i, j) of each true grid whose R_V(i, j) or R_H(i, j) is
+    nonempty, zero where the endpoints fail (the kernel's
+    ``reached_cells``)."""
     B, P, Q = p.shape[0], p.shape[1], q.shape[1]
     e = eps[:, None]
     e2 = eps * eps
@@ -500,6 +506,10 @@ def _frechet_decision(p, q, eps):
     v_lo, v_hi = _free_intervals(p[:, :-1, None], p[:, 1:, None], q[:, None, 1:], e[..., None])
     h_lo, h_hi = _free_intervals(q[:, None, :-1], q[:, None, 1:], p[:, 1:, None], e[..., None])
     reach_v = torch.zeros(B, dtype=torch.bool, device=p.device)
+    if lengths is not None:
+        rows = lengths[0] - 1
+        cols = torch.arange(Q - 1, device=p.device)[None] < lengths[1][:, None] - 1
+        cells = torch.zeros(B, dtype=torch.int64, device=p.device)
     for i in range(P - 1):
         a, h, rv_left = v_lo[:, i], v_hi[:, i], rv0[:, i:i + 1]
         # in-row propagation to R_V(i, j+1): reset to V(i, j+1) when the
@@ -510,11 +520,14 @@ def _frechet_decision(p, q, eps):
         base = torch.where(Fs & (rv_left <= Cs), torch.maximum(As, rv_left), INF)
         s = torch.where(rs, cs, base)  # lo of R_V(i, j+1), j = 0..Q-2
         rv_lo = torch.cat([rv_left, s[:, :-1]], -1)  # R_V(i, j), j = 0..Q-2
+        if lengths is not None:
+            cells += (((rv_lo < INF) | (bottom < INF)) & cols).sum(-1) * (i < rows)
         top = torch.where(rv_lo < INF, h_lo[:, i],
                           torch.where(bottom < INF, torch.maximum(h_lo[:, i], bottom), INF))
         bottom = torch.where(top <= h_hi[:, i], top, INF)
         reach_v = s[:, -1] < INF  # R_V(i, Q-1) nonempty
-    return ok_ends & (reach_v | (bottom[:, -1] < INF))
+    ok = ok_ends & (reach_v | (bottom[:, -1] < INF))
+    return ok if lengths is None else (ok, torch.where(ok_ends, cells, 0))
 
 
 def _repeat_last(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -524,20 +537,48 @@ def _repeat_last(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, 2))
 
 
-def frechet_bisect(p, q, n, m, hi) -> torch.Tensor:
+def bisection_round(lo, hi, levels: int, decide):
+    """``levels`` bisection steps of every bracket (lo, hi) (B,) at once: the
+    midpoints of the next ``levels`` levels of the bisection tree, in heap
+    order (node v's children are 2v, taken when its decision holds, and
+    2v + 1), decided together by ``decide`` ((B, 2^levels - 1) eps -> bool of
+    that shape), then the walk down the decisions. Each midpoint is the
+    expression the sequential step computes on the same bracket, so the
+    result is that of ``levels`` sequential steps bit for bit. -> (lo, hi)."""
+    l, h, mids = lo[:, None], hi[:, None], []
+    for _ in range(levels):
+        mid = 0.5 * (l + h)
+        mids.append(mid)
+        l = torch.stack([l, mid], -1).flatten(1)  # left child (l, mid), right (mid, h)
+        h = torch.stack([mid, h], -1).flatten(1)
+    mids = torch.cat(mids, 1)
+    ok = decide(mids)
+    v = torch.zeros_like(lo, dtype=torch.int64)[:, None]  # heap index - 1
+    for _ in range(levels):
+        mid, yes = mids.gather(1, v)[:, 0], ok.gather(1, v)
+        lo, hi = torch.where(yes[:, 0], lo, mid), torch.where(yes[:, 0], mid, hi)
+        v = 2 * v + 1 + (~yes).to(torch.int64)
+    return lo, hi
+
+
+def frechet_bisect(p, q, n, m, hi, depth: int = 1) -> torch.Tensor:
     """The plain version of ``ops/frechet_kernel.py``: 30 bisection steps of
     the decision from lo = max(endpoint distances) and the given hi (the
-    discrete Frechet), over p[:n], q[:m] padded by repeating the last point.
-    -> (B,) float32."""
+    discrete Frechet), over p[:n], q[:m] padded by repeating the last point,
+    as the kernel's rounds of ``depth`` levels (``bisection_round``; each
+    round decides the pairs repeated along its 2^depth - 1 candidates).
+    Every depth gives depth 1's values bit for bit. -> (B,) float32."""
     p, q, n, m, _ = _prep(p, q, n, m)
     p, q = _repeat_last(p, n), _repeat_last(q, m)
     lo = torch.maximum(torch.sqrt(_sq_dist(p[:, 0], q[:, 0])),
                        torch.sqrt(_sq_dist(p[:, -1], q[:, -1])))
     hi = _tensor(hi, p.device, p.dtype).reshape(-1)
-    for _ in range(BISECTION_STEPS):
-        mid = 0.5 * (lo + hi)
-        ok = _frechet_decision(p, q, mid)
-        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    for levels in frechet_kernel.round_levels(depth):
+        C = 2 ** levels - 1
+        pc, qc = p.repeat_interleave(C, 0), q.repeat_interleave(C, 0)
+        lo, hi = bisection_round(
+            lo, hi, levels,
+            lambda eps: _frechet_decision(pc, qc, eps.reshape(-1)).reshape(eps.shape))
     return hi
 
 
@@ -582,6 +623,25 @@ def _matrix_chunk(P: int, Q: int) -> int:
     return max(1, int(4e9 // (6 * P * Q * 4)))
 
 
+def shape_buckets(gens: Sequence[np.ndarray], sims: Sequence[np.ndarray], device):
+    """Pairs grouped by padded shape as ``_score_bucket`` takes them, in order
+    of first appearance: {(P, Q): (indices, p (B, P, 2), q (B, Q, 2), n, m
+    (B,) int64)} on ``device``, float32, padded by repeating the last point."""
+    groups = {}
+    for i, (gp, sp) in enumerate(zip(gens, sims)):
+        groups.setdefault((_bucket_size(len(gp)), _bucket_size(len(sp))), []).append(i)
+    out = {}
+    for key, idxs in groups.items():
+        p = torch.from_numpy(np.stack([_bucket_pad(np.asarray(gens[i], np.float32))
+                                       for i in idxs])).to(device)
+        q = torch.from_numpy(np.stack([_bucket_pad(np.asarray(sims[i], np.float32))
+                                       for i in idxs])).to(device)
+        n = torch.tensor([len(gens[i]) for i in idxs], dtype=torch.int64, device=device)
+        m = torch.tensor([len(sims[i]) for i in idxs], dtype=torch.int64, device=device)
+        out[key] = (idxs, p, q, n, m)
+    return out
+
+
 def _score_bucket(p, q, n, m, g, eps) -> Dict[str, torch.Tensor]:
     """All 14 metrics of one bucket: p (B, P, 2), q (B, Q, 2) padded by
     repeating the last point, n, m (B,) int64 on p's device. The DP family
@@ -621,21 +681,11 @@ def calculate_trajectory_distances_batch(
     """All 14 metrics for a list of flight pairs ((n, 2) / (m, 2) [lat, lon]
     arrays), bucketed by padded shape. Returns {metric: [per-flight values]}
     in input order, with the reference's key names. On the card each bucket
-    is two kernel launches (the DP family, then the continuous Frechet)."""
+    is one DP kernel launch, then the continuous Frechet's rounds."""
     dev = resolve_device(device)
-    buckets = {}
-    for i, (gp, sp) in enumerate(zip(gens, sims)):
-        key = (_bucket_size(len(gp)), _bucket_size(len(sp)))
-        buckets.setdefault(key, []).append(i)
     g = torch.tensor(np.asarray(adep_latlon, np.float32), device=dev)
     out = {k: [None] * len(gens) for k in KEYS}
-    for idxs in buckets.values():
-        p = torch.from_numpy(np.stack([_bucket_pad(np.asarray(gens[i], np.float32))
-                                       for i in idxs])).to(dev)
-        q = torch.from_numpy(np.stack([_bucket_pad(np.asarray(sims[i], np.float32))
-                                       for i in idxs])).to(dev)
-        n = torch.tensor([len(gens[i]) for i in idxs], dtype=torch.int64, device=dev)
-        m = torch.tensor([len(sims[i]) for i in idxs], dtype=torch.int64, device=dev)
+    for idxs, p, q, n, m in shape_buckets(gens, sims, dev).values():
         vals = _score_bucket(p, q, n, m, g, eps)
         for k in KEYS:
             for j, v in zip(idxs, vals[k].cpu().tolist()):

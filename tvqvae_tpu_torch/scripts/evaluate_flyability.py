@@ -173,7 +173,8 @@ def filter_simulated(points: Table, ades_latlon) -> Table:
 
 def score_distances(original: Table, simulated: Table, adep_latlon, device="cuda") -> dict:
     """Per-flight 14-metric distances (reference flyability_eval.py:271-351),
-    scored in shape buckets: on the card two kernel launches a bucket."""
+    scored in shape buckets: on the card a DP kernel launch and the Frechet
+    kernel's rounds a bucket."""
     sim = dict(flights(simulated))
     gens, sims = [], []
     for fid, f in flights(original):
