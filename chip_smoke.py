@@ -119,7 +119,10 @@ It needs no JAX and no network. Phases, each fatal on failure:
      plain version (its decision replayed from a CUDA graph) on 2 pairs of
      (1024, 512) points and at each bucket's plan on its pairs cut to 64 of
      p's points (1e-5 relative, and equal to depth 1), with ms, the plain
-     version's ms and the bound.
+     version's ms and the bound; the DP kernel at each bucket's plan on its
+     pairs cut to 300 of p's points (past two turns of the strips' 128-row
+     hand-off ring), and each bucket's batch values equal to a standalone
+     launch of its pairs at another plan.
  14c. preprocess: (a) the counters set to 0, the OpenSky preprocess CLI in
      the process on a synthetic export written by the phase (5 corridors of
      20 flights of 4633 points, ~0.46M rows, aircraft interleaved in time,
@@ -322,14 +325,16 @@ QUALITY_STEPS, QUALITY_EVAL = {"stage1": 10, "stage2": 20, "stage3": 5}, 64
 # first bucket, the Frechet kernel on FLY_CHECK_PAIRS pairs of exactly
 # FLY_FRECHET_SHAPE points (the plain Frechet at full length takes minutes).
 # More checks reach the launch plans of the full-length buckets that those
-# shapes do not: the Frechet's plan of each bucket of the batch (its depth,
-# candidates a block, elements a thread and block size), on the bucket's
-# pairs cut to FLY_BRANCH_ROWS of p's points (the plain Frechet's cost grows
-# with the rows), and the DP's diagonals longer than a block's 1024 threads,
-# on pairs of FLY_WIDE x FLY_WIDE points.
+# shapes do not: each kernel's plan of each bucket of the batch (the
+# Frechet's depth, candidates a block, elements a thread and block size; the
+# DP's warps a block and cluster), on the bucket's pairs cut to
+# FLY_BRANCH_ROWS (the Frechet) or FLY_DP_BRANCH_ROWS (the DP: past two
+# turns of a strip's 128-row hand-off ring, so that it wraps and its
+# producer waits on the reader) of p's points; the plain versions' cost
+# grows with the rows.
 FLY_PAIRS, FLY_LONG_PAIRS, FLY_STRIDE, FLY_CHECK_PAIRS = 64, 2, 8, 2
 FLY_FRECHET_SHAPE = (1024, 512)
-FLY_BRANCH_ROWS, FLY_WIDE = 64, 1100
+FLY_BRANCH_ROWS, FLY_DP_BRANCH_ROWS = 64, 300
 # fp32 operations per grid cell, a transcendental counted as one: the cost
 # (planar: 2 sub, 2 mul, 2 add, sqrt; spherical: 2 sub, 2 halvings, 2 sin, 2
 # squares, 2 mul, add, 2 clamps, sqrt, asin, mul) and each recurrence. The
@@ -2856,7 +2861,8 @@ def fly_bound(n, m, variants=None, reached=None):
     reaches, ``frechet_kernel.reached_cells``) over pairs of true lengths
     ``n``, ``m``: the bytes they need read once (their points, lengths, and
     hi) and written once at HBM_BYTES_PER_S, or the fp32 operations at
-    FP32_FLOPS, the larger. The DP's operations cover the true grids; the
+    FP32_FLOPS, the larger. The DP's operations cover the true grids: a
+    cell's cost once for each metric the variants use, one step a variant; the
     Frechet's the reached cells at every step and, once, the most cells one
     step reaches (a larger eps reaches a superset). -> (ms, bound_by, ops)."""
     points = 8 * (sum(n) + sum(m))
@@ -2866,7 +2872,9 @@ def fly_bound(n, m, variants=None, reached=None):
         nbytes = points + len(n) * (8 + 4 + 4)
     else:
         cells = sum(a * b for a, b in zip(n, m))
-        ops = cells * sum(DP_COST_OPS[metric] + DP_STEP_OPS[kind] for kind, metric, _ in variants)
+        metrics = dict.fromkeys(metric for _, metric, _ in variants)  # a cost once a metric
+        ops = cells * (sum(DP_COST_OPS[metric] for metric in metrics)
+                       + sum(DP_STEP_OPS[kind] for kind, _, _ in variants))
         nbytes = points + len(n) * (8 + 4 * len(variants))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", ops
@@ -2969,6 +2977,30 @@ def fly_plan(frechet_kernel, B, mmax, device, depth=None):
     return frechet_kernel.launch_plan(B, mmax, 132, lambda *a: 1, depth)
 
 
+def fly_dp_plan(traj_dp_kernel, B, ntasks, nmax, mmax, device):
+    """The DP kernel's launch plan on the card; in a CPU rehearsal the rule
+    on an H100's 132 SMs at one block an SM."""
+    if device == "cuda":
+        return traj_dp_kernel.card_plan(B, ntasks, nmax, mmax, device)
+    return traj_dp_kernel.launch_plan(B, ntasks, nmax, mmax, 132, lambda *a: (1, 132))
+
+
+def fly_dp_steps(plan):
+    """The DP pipeline's dependent steps at a plan: its rows, then a step
+    for each lane across its columns."""
+    return plan.rows + plan.cols - 1
+
+
+def fly_dp_other_plan(traj_dp_kernel, plan):
+    """Another DP plan over the same grids: a cluster one block narrower,
+    or two blocks where the plan has one; where the columns fit one strip,
+    the lanes across the other side."""
+    nmax, mmax = (plan.cols, plan.rows) if plan.swap else (plan.rows, plan.cols)
+    other = traj_dp_kernel.make_plan(nmax, mmax, plan.cluster - 1 if plan.cluster > 1 else 2,
+                                     plan.swap)
+    return other if other != plan else traj_dp_kernel.make_plan(nmax, mmax, 1, not plan.swap)
+
+
 def fly_reached(torch, frechet_kernel, D, p, q, n, m, hi, device):
     """(30, B) cells that the 30 sequential decisions reach: the kernel's
     count on the card; in a CPU rehearsal the plain decision's."""
@@ -2984,12 +3016,16 @@ def flyability_phase(torch, device="cuda"):
     rounds of the Frechet kernel's plan); wall ms, pairs/s, each kernel's
     device ms per launch; each bucket's Frechet equal to the kernel at depth 1
     on the same inputs, its ms a call beside depth 1's (events, in turns),
-    depth, rounds, blocks and ns a dependent step; then each kernel held to its plain version on
+    depth, rounds, blocks and ns a dependent step; each bucket's DP plan,
+    bound (a cost a metric and a step a variant over its cells) and ns a
+    dependent step; then each kernel held to its plain version on
     the card (DP family: EDR, LCSS exactly, the discrete Frechet 1e-6, DTW and
     ERP 1e-5 relative; the Frechet 1e-5 relative), also at the launch plans
-    of the full-length buckets (each bucket's Frechet plan on its pairs cut to
-    FLY_BRANCH_ROWS rows, equal to depth 1 there too; the DP's diagonals
-    longer than its threads), with ms (events), the plain version's ms and
+    of the full-length buckets (each bucket's Frechet plan on its pairs cut
+    to FLY_BRANCH_ROWS rows, equal to depth 1 there too, its DP plan on
+    them cut to FLY_DP_BRANCH_ROWS rows; each bucket's batch values equal
+    to a standalone DP launch at another plan), with ms (events), the plain
+    version's ms and
     the bound at those inputs (the Frechet's over the cells its decisions
     reach: the kernel's count, equal to the plain decision's at the check
     inputs and the cuts), and SSPD / Hausdorff of the batch against the
@@ -3015,9 +3051,26 @@ def flyability_phase(torch, device="cuda"):
     check(list(inputs) == buckets, f"buckets {list(inputs)} against {buckets}")
     plans = {key: fly_plan(frechet_kernel, len(idxs), int(m.max()), device)
              for key, (idxs, _, _, _, m, _) in inputs.items()}
+    variants = D.dp_variants()
+    spec = [v[1:] for v in variants]
+    ntasks = len(traj_dp_kernel.tasks(spec))
+    dp_plans = {key: fly_dp_plan(traj_dp_kernel, len(idxs), ntasks, int(n.max()), int(m.max()),
+                                 device)
+                for key, (idxs, _, _, n, m, _) in inputs.items()}
     rounds = [plans[key].rounds for key in buckets]
     check(launches == {"traj_dp": len(buckets), "frechet": sum(rounds)},
           f"flyability launches {launches}, buckets {buckets}, the plans' rounds {rounds}")
+    # each bucket's batch values: the same bits from its pairs alone at
+    # another DP plan (another cluster size, so other strips cross blocks)
+    dp_others = {}
+    for key, (idxs, bp, bq, bn, bm, _) in inputs.items():
+        other = dp_others[key] = fly_dp_other_plan(traj_dp_kernel, dp_plans[key])
+        check(other != dp_plans[key], f"traj_dp bucket {key}: no other plan than {dp_plans[key]}")
+        alone = traj_dp_kernel.traj_dp(bp, bq, bn, bm, adep, spec, plan=other).cpu().numpy()
+        for j, (vkey, *_) in enumerate(variants):
+            check(np.array_equal(alone[:, j], np.asarray(out[vkey])[list(idxs)].astype(np.float32)),
+                  f"traj_dp {vkey} of bucket {key}: the batch's values differ from its pairs "
+                  f"alone at plan {tuple(other[:3])}")
     check(set(out) == set(D.KEYS) and all(len(v) == len(gens) for v in out.values()),
           f"flyability keys {sorted(out)}")
     bad = [k for k, v in out.items() if not np.isfinite(v).all()]
@@ -3026,6 +3079,9 @@ def flyability_phase(torch, device="cuda"):
           "Frechet above the discrete Frechet")
     by_kernel, busy = fly_device_ms(
         torch, lambda: D.calculate_trajectory_distances_batch(gens, sims, adep, device=device))
+    dp_launch_ms = by_kernel["traj_dp_kernel"]
+    check(device != "cuda" or len(dp_launch_ms) == len(buckets),
+          f"profiled {len(dp_launch_ms)} DP launches, the batch has {len(buckets)} buckets")
     fr_launch_ms = by_kernel["frechet_kernel"]
     check(device != "cuda" or len(fr_launch_ms) == sum(rounds),
           f"profiled {len(fr_launch_ms)} Frechet launches, the plans give {sum(rounds)}")
@@ -3033,7 +3089,7 @@ def flyability_phase(torch, device="cuda"):
     fr_batch_ms = [float(sum(fr_launch_ms[a:b])) for a, b in zip(edges[:-1], edges[1:])]
     print(f"[flyability] {len(gens)} pairs in buckets {buckets}: {1e3 * wall:.1f} ms wall, "
           f"{len(gens) / wall:.1f} pairs/s; launches {launches}; device busy {busy:.2f} ms; "
-          f"traj_dp_kernel ms a launch by bucket {[round(t, 3) for t in by_kernel['traj_dp_kernel']]}"
+          f"traj_dp_kernel ms a launch by bucket {[round(t, 3) for t in dp_launch_ms]}"
           f"; frechet_kernel ms a bucket (its rounds summed) {[round(t, 3) for t in fr_batch_ms]}"
           "; medians " + ", ".join(f"{k} {np.median(out[k]):.6g}" for k in D.KEYS), flush=True)
 
@@ -3072,17 +3128,15 @@ def flyability_phase(torch, device="cuda"):
               f"computes it)", flush=True)
 
     # the DP kernel against its plain version, FLY_CHECK_PAIRS pairs of the
-    # first bucket, and the Frechet kernel against its plain version at
-    # FLY_FRECHET_SHAPE and at each bucket's plan on FLY_BRANCH_ROWS rows: the
-    # plain Frechet's graph replays run on the card while the host issues the
-    # plain DP family's row loops
+    # first bucket, and both kernels against their plain versions at each
+    # bucket's plan on FLY_BRANCH_ROWS rows, the Frechet also at
+    # FLY_FRECHET_SHAPE: the plain Frechet's graph replays run on the card
+    # while the host issues the plain DP family's row loops
     k = FLY_CHECK_PAIRS
     p = torch.from_numpy(np.stack([D._bucket_pad(x) for x in gens[:k]])).to(device)
     q = torch.from_numpy(np.stack([D._bucket_pad(x) for x in sims[:k]])).to(device)
     n = torch.tensor([len(x) for x in gens[:k]], device=device)
     m = torch.tensor([len(x) for x in sims[:k]], device=device)
-    variants = D.dp_variants()
-    spec = [v[1:] for v in variants]
     got = traj_dp_kernel.traj_dp(p, q, n, m, adep, spec)
     fg, fs = fly_tracks(rng, k, FLY_FRECHET_SHAPE[0], 2)
     fp = torch.from_numpy(np.stack(fg)).to(device)
@@ -3094,9 +3148,11 @@ def flyability_phase(torch, device="cuda"):
     check(torch.equal(fr, frechet_kernel.frechet(fp, fq, fn_, fm, hi, depth=1)),
           f"frechet at {FLY_FRECHET_SHAPE} differs from depth 1")
     fr_cells = fly_reached(torch, frechet_kernel, D, fp, fq, fn_, fm, hi, device)
-    # each bucket's plan on its pairs cut to FLY_BRANCH_ROWS of p's points
+    # each bucket's plan on its pairs cut to FLY_BRANCH_ROWS (the Frechet) and
+    # FLY_DP_BRANCH_ROWS (the DP) of p's points
     pick = np.linspace(0, L - 1, FLY_BRANCH_ROWS).round().astype(int)
-    branch = {}
+    dp_pick = np.linspace(0, L - 1, FLY_DP_BRANCH_ROWS).round().astype(int)
+    branch, dp_branch = {}, {}
     for key, (idxs, _, bq, _, bm, _) in inputs.items():
         bp = torch.from_numpy(np.stack([D._bucket_pad(gens[i][pick]) for i in idxs])).to(device)
         bn = [FLY_BRANCH_ROWS] * len(idxs)
@@ -3108,24 +3164,20 @@ def flyability_phase(torch, device="cuda"):
               "differs from depth 1")
         branch[key] = (bp, bq, bn, bm, bhi, bgot,
                        fly_reached(torch, frechet_kernel, D, bp, bq, bn, bm, bhi, device))
-    # the DP's diagonals longer than a block: pairs of FLY_WIDE x FLY_WIDE points
-    wg, ws = fly_tracks(rng, k, FLY_WIDE, 1)
-    wp = torch.from_numpy(np.stack([D._bucket_pad(x) for x in wg])).to(device)
-    wq = torch.from_numpy(np.stack([D._bucket_pad(x) for x in ws])).to(device)
-    wn = torch.tensor([FLY_WIDE] * k, device=device)
-    w_threads = traj_dp_kernel.launch_plan(FLY_WIDE, FLY_WIDE)[0]
-    check(device != "cuda" or w_threads < FLY_WIDE,
-          f"the DP's plan at {FLY_WIDE} x {FLY_WIDE} has {w_threads} threads: no strided diagonal")
-    w_got = traj_dp_kernel.traj_dp(wp, wq, wn, wn, adep, spec)
+        dp_bp = torch.from_numpy(np.stack([D._bucket_pad(gens[i][dp_pick]) for i in idxs]))
+        dp_bp, dp_bn = dp_bp.to(device), [FLY_DP_BRANCH_ROWS] * len(idxs)
+        dp_branch[key] = (dp_bp, bq, dp_bn, bm, traj_dp_kernel.traj_dp(
+            dp_bp, bq, dp_bn, bm, adep, spec, plan=dp_plans[key]))
     torch.cuda.synchronize()
     finish_branch = {key: frechet_plain_start(torch, D, bp, bq, bn, bm, bhi.clone(), device)
-                     for key, (bp, bq, bn, bm, bhi, _, _) in branch.items()}
+                     for key, (bp, bq, bn, bm, bhi, *_) in branch.items()}
     finish_frechet = frechet_plain_start(torch, D, fp, fq, fn_, fm, hi.clone(), device)
     t0 = time.perf_counter()
     want = D.dp_metrics(p, q, n, m, adep, spec)
     torch.cuda.current_stream().synchronize()
     dp_plain_ms = 1e3 * (time.perf_counter() - t0)
-    w_want = D.dp_metrics(wp, wq, wn, wn, adep, spec)
+    branch_dp = {key: D.dp_metrics(bp, bq, bn, bm, adep, spec)
+                 for key, (bp, bq, bn, bm, _) in dp_branch.items()}
     fr_plain, fr_plain_ms, fr_plain_cells = finish_frechet()
     branch_plain = {key: fin() for key, fin in finish_branch.items()}
 
@@ -3142,15 +3194,32 @@ def flyability_phase(torch, device="cuda"):
         return rels
 
     rels = dp_rels(got, want, "in the (5120, 1024) bucket")
-    w_rels = dp_rels(w_got, w_want, f"with strided diagonals at {FLY_WIDE} x {FLY_WIDE}")
+    branch_rels = {key: dp_rels(dp_branch[key][4], branch_dp[key], f"at bucket {key}'s plan "
+                                f"{tuple(dp_plans[key][:3])} on {FLY_DP_BRANCH_ROWS} rows")
+                   for key in dp_branch}
     for j, (key, *_) in enumerate(variants):
         check(np.allclose(out[key][:k], got[:, j].cpu().numpy(), rtol=0, atol=0),
               f"traj_dp {key}: the batch's value differs from the two-pair launch")
-    dp_err = max(float((got - want).abs().max()), float((w_got - w_want).abs().max()))
+    dp_err = max([float((got - want).abs().max())]
+                 + [float((dp_branch[key][4] - branch_dp[key]).abs().max()) for key in dp_branch])
     dp_ms = time_ms(torch, lambda: traj_dp_kernel.traj_dp(p, q, n, m, adep, spec), iters=5,
                     warmup=1)
     dp_bound, dp_by, dp_ops = fly_bound(n.tolist(), m.tolist(), spec)
-    diagonals = max(a + b - 1 for a, b in zip(n.tolist(), m.tolist()))
+    dp_plan = fly_dp_plan(traj_dp_kernel, k, ntasks, int(n.max()), int(m.max()), device)
+    dp_steps = fly_dp_steps(dp_plan)
+    dp_buckets = {}  # each bucket of the batch: its bound, cells, plan and ns a step
+    for (key, (_, _, _, bn_, bm_, _)), launch_ms in zip(inputs.items(), dp_launch_ms or
+                                                        [float("nan")] * len(inputs)):
+        bound, by, ops = fly_bound(bn_.tolist(), bm_.tolist(), spec)
+        steps = fly_dp_steps(dp_plans[key])
+        dp_buckets[key] = dict(bound=bound, by=by, gflop=ops / 1e9, steps=steps,
+                               cells=traj_dp_kernel.cells(bn_.tolist(), bm_.tolist()),
+                               ns_per_step=1e6 * launch_ms / steps)
+        print(f"[flyability] traj_dp bucket {key}, {len(bn_)} pairs: plan "
+              f"{dp_plans[key]._asdict()}: {launch_ms:.3f} ms a launch in the batch "
+              f"({1e6 * launch_ms / steps:.1f} ns per dependent step of {steps}); bound "
+              f"{bound:.5f} ms ({by}: {ops / 1e9:.3f} GFLOP over {dp_buckets[key]['cells']} "
+              "cells, a cost a metric and a step a variant)", flush=True)
 
     # SSPD / Hausdorff: the plain matrices, on the card and on the CPU
     for metric in ("euclidean", "spherical"):
@@ -3194,13 +3263,17 @@ def flyability_phase(torch, device="cuda"):
     print(f"[flyability] traj_dp vs plain on {k} pairs at {tuple(p.shape[1:2]) + tuple(q.shape[1:2])} "
           f"(true {n.tolist()} x {m.tolist()}): max rel by metric "
           + ", ".join(f"{key} {r:.3g}" for key, r in rels.items())
-          + f"; {dp_ms:.3f} ms a launch ({1e6 * dp_ms / diagonals:.1f} ns per dependent diagonal "
-          f"of {diagonals}), plain {dp_plain_ms:.1f} ms, bound {dp_bound:.5f} ms ({dp_by}: "
-          f"{dp_ops / 1e9:.3f} GFLOP, no single PyTorch call computes it)", flush=True)
-    print(f"[flyability] traj_dp vs plain with strided diagonals on {k} pairs at "
-          f"{tuple(wp.shape[1:2]) + tuple(wq.shape[1:2])} (true {FLY_WIDE} x {FLY_WIDE}, "
-          f"{w_threads} threads): max rel by metric "
-          + ", ".join(f"{key} {r:.3g}" for key, r in w_rels.items()), flush=True)
+          + f"; plan {tuple(dp_plan[:3])}: {dp_ms:.3f} ms a launch ({1e6 * dp_ms / dp_steps:.1f} "
+          f"ns per dependent step of {dp_steps}), plain {dp_plain_ms:.1f} ms, bound "
+          f"{dp_bound:.5f} ms ({dp_by}: {dp_ops / 1e9:.3f} GFLOP, no single PyTorch call "
+          "computes it)", flush=True)
+    for key, (bp, bq, *_) in dp_branch.items():
+        print(f"[flyability] traj_dp vs plain at bucket {key}'s plan {tuple(dp_plans[key][:3])} "
+              f"on {bp.shape[0]} pairs at {tuple(bp.shape[1:2]) + tuple(bq.shape[1:2])} (true "
+              f"{FLY_DP_BRANCH_ROWS} x {int(inputs[key][4].max())}): max rel by metric "
+              + ", ".join(f"{v} {r:.3g}" for v, r in branch_rels[key].items())
+              + f"; the batch's values equal to its pairs alone at plan "
+              f"{tuple(dp_others[key][:3])}", flush=True)
     print(f"[flyability] frechet vs plain on {k} pairs at {FLY_FRECHET_SHAPE}, plan "
           f"{tuple(fr_plan)}: max rel {fr_rel:.3g}, equal to depth 1; {fr_ms:.3f} ms a call "
           f"({1e6 * fr_ms / (fr_plan.rounds * fr_steps):.1f} ns per dependent round-step of "
@@ -3223,7 +3296,13 @@ def flyability_phase(torch, device="cuda"):
          "launches": launches["traj_dp"], "launches_by_path": {"flyability": launches["traj_dp"]},
          "max_abs_err": dp_err, "ms": dp_ms, "plain_ms": dp_plain_ms, "bound_ms": dp_bound,
          "bound_by": dp_by, "shape_pairs_PQ": [k, *p.shape[1:2], *q.shape[1:2]],
-         "device_ms_by_bucket": dict(zip(map(str, buckets), by_kernel["traj_dp_kernel"])),
+         "plan": dp_plan._asdict(), "ns_per_step": 1e6 * dp_ms / dp_steps,
+         "device_ms_by_bucket": dict(zip(map(str, buckets), dp_launch_ms)),
+         "bound_ms_by_bucket": {str(key): v["bound"] for key, v in dp_buckets.items()},
+         "cells_by_bucket": {str(key): v["cells"] for key, v in dp_buckets.items()},
+         "gflop_by_bucket": {str(key): v["gflop"] for key, v in dp_buckets.items()},
+         "plan_by_bucket": {str(key): dp_plans[key]._asdict() for key in dp_buckets},
+         "ns_per_step_by_bucket": {str(key): v["ns_per_step"] for key, v in dp_buckets.items()},
          **common},
         {"name": "frechet_decision", "source": "tvqvae_tpu_torch/csrc/frechet_decision.cu",
          "replaces": "tvqvae_tpu/evaluation/flyability/distances.py:406",

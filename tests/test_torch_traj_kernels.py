@@ -9,7 +9,7 @@ The ``gpu`` cases skip without a card; the CUDA kernels have no CPU mode.
 Tolerances, kernel against plain version on the same card: LCSS and EDR
 exactly (integer counts over bit-equal costs); the discrete Frechet exactly
 (it only selects among bit-equal costs); DTW and ERP 1e-5 relative (the
-kernel adds along anti-diagonals, the plain version through a row scan);
+kernel adds cell by cell, the plain version through a row scan);
 the continuous Frechet 1e-5 relative (the same decisions over bit-equal free
 intervals; the kernel runs the true lengths, the plain version the bucket
 padding), and exactly between its own plans (every depth and block shape
@@ -50,14 +50,122 @@ def test_build_is_lazy():
         assert mod.SOURCE.exists()
 
 
-@pytest.mark.parametrize("nmax,mmax,threads,smem", [
-    (4633, 580, 608, 4 * (4 * 5213 + 3 * 580 + 32)),
-    (4633, 4633, 1024, 4 * (4 * 9266 + 3 * 4633 + 32)),
-    (7, 2, 32, 4 * (4 * 9 + 3 * 2 + 32)),
+def _occupancy(warps, cluster, smem):
+    """An H100 at the build's register cap (65536 / kMaxThreads a thread):
+    blocks an SM holds (threads, registers, shared memory, 32 blocks), and
+    clusters the card holds at once (132 SMs, GPCs not modelled)."""
+    threads = 32 * warps
+    regs = 65536 // traj_dp_kernel.MAX_THREADS
+    blocks = min(32, 2048 // threads, 65536 // (regs * threads), traj_dp_kernel.SMEM_LIMIT // smem)
+    return blocks, (132 * blocks) // cluster
+
+
+def _assert_covers(plan, rows, cols):
+    """Every column of a rows x cols grid is held by exactly one lane
+    (strip s of the cluster's warps: rank s // warps, warp s % warps), and
+    each lane's steps walk every row exactly once."""
+    owner = [0] * cols
+    for strip in range(plan.warps * plan.cluster):
+        for lane in range(32):
+            if strip * 32 + lane < cols:
+                owner[strip * 32 + lane] += 1
+    assert owner == [1] * cols
+    steps = rows + 31  # the kernel's loop: lane t on row s - t at step s
+    for lane in (0, 1, 17, 31):
+        walked = [s - lane for s in range(steps) if 0 <= s - lane < rows]
+        assert walked == list(range(rows))
+
+
+def _occupancy_gpcs(warps, cluster, smem):
+    """``_occupancy`` where the card places only 7 clusters of 10 blocks or
+    more at once, as an H100's GPCs do at one block an SM."""
+    blocks, clusters = _occupancy(warps, cluster, smem)
+    return blocks, 7 if cluster >= 10 else clusters
+
+
+@pytest.mark.parametrize("B,ntasks,nmax,mmax,occupancy,plan", [
+    # the [flyability] batch's buckets on an H100's 132 SMs: 128 tasks, a
+    # block each; 4 tasks, a cluster of 15 blocks each
+    (64, 2, 4633, 580, _occupancy, (19, 1, False)),
+    (2, 2, 4633, 4633, _occupancy, (10, 15, False)),
+    # the check inputs: 4 tasks of 4633 x 580 over clusters of 10
+    (2, 2, 4633, 580, _occupancy, (2, 10, False)),
+    # n < m: the lanes run across p's points
+    (3, 2, 40, 100, _occupancy, (1, 2, True)),
+    # n or m = 1
+    (1, 1, 1, 5, _occupancy, (1, 1, True)),
+    (4, 2, 7, 1, _occupancy, (1, 1, False)),
+    # a width that is no multiple of a strip's 32 columns
+    (64, 2, 300, 33, _occupancy, (2, 1, False)),
+    # the discrete Frechet alone (one task a pair), as chip_smoke.py's hi
+    (2, 1, 1024, 512, _occupancy, (1, 16, False)),
+    # 8 tasks where the card holds 7 wide clusters: the widest that fits one wave
+    (4, 2, 4633, 4633, _occupancy_gpcs, (17, 9, False)),
+    # more tasks than SMs, each wider than a block's strips: more than one wave
+    (128, 2, 4633, 4633, _occupancy, (19, 8, False)),
 ])
-def test_dp_launch_plan(nmax, mmax, threads, smem):
-    assert traj_dp_kernel.launch_plan(nmax, mmax) == (threads, min(nmax, mmax), smem)
-    assert smem <= traj_dp_kernel.SMEM_LIMIT
+def test_dp_launch_plan(B, ntasks, nmax, mmax, occupancy, plan):
+    """The fill rule at an H100's occupancy (``_occupancy``): the plan's
+    shape, the card's limits, and every cell covered once."""
+    got = traj_dp_kernel.launch_plan(B, ntasks, nmax, mmax, 132, occupancy)
+    assert tuple(got[:3]) == plan
+    traj_dp_kernel.check_plan(got, nmax, mmax)
+    rows, cols = (mmax, nmax) if got.swap else (nmax, mmax)
+    assert (got.rows, got.cols) == (rows, cols) and rows >= cols
+    assert 32 * got.warps <= traj_dp_kernel.MAX_THREADS <= 1024
+    assert got.cluster <= traj_dp_kernel.MAX_CLUSTER
+    assert got.smem == traj_dp_kernel.smem_bytes(rows, cols, got.warps) <= traj_dp_kernel.SMEM_LIMIT
+    # no block without a strip: the last block holds columns
+    assert (got.cluster - 1) * got.warps * 32 < cols
+    _assert_covers(got, rows, cols)
+
+
+def test_dp_limits_read_from_the_source():
+    """The wrapper's limits are the kernel's constexprs, and the layout they
+    describe holds: whole warps within a block, a ring of a power of two
+    rows that both hand-off chunks divide, a slot a kind."""
+    T = traj_dp_kernel
+    const = T._CONST
+    assert (T.MAX_THREADS, T.MAX_CLUSTER, T.RING, T.KINDS_SLOTS) == (
+        const["kMaxThreads"], const["kMaxCluster"], const["kRing"], const["kKinds"])
+    assert T.MAX_THREADS % 32 == 0 and T.MAX_THREADS <= 1024 and T.MAX_CLUSTER <= 16
+    assert T.RING & (T.RING - 1) == 0
+    for chunk in (const["kChunk"], const["kRemoteChunk"]):
+        assert chunk & (chunk - 1) == 0 and T.RING % chunk == 0 and 2 * chunk <= T.RING
+    assert T.KINDS_SLOTS == len(T.KINDS) and const["kMaxTasks"] >= T.MAX_VARIANTS
+
+
+def test_dp_launch_plan_rejects():
+    """Grids whose points do not fit a block's shared memory raise, as do
+    plans that leave columns out or exceed the kernel's blocks."""
+    with pytest.raises(ValueError):
+        traj_dp_kernel.launch_plan(2, 2, 9000, 9000, 132, _occupancy)
+    with pytest.raises(ValueError):
+        traj_dp_kernel.launch_plan(0, 2, 100, 100, 132, _occupancy)
+    ok = traj_dp_kernel.make_plan(4633, 580, 1, False)
+    traj_dp_kernel.check_plan(ok, 4633, 580)
+    for bad in (ok._replace(warps=21), ok._replace(cluster=17),
+                ok._replace(warps=18, smem=traj_dp_kernel.smem_bytes(4633, 580, 18)),
+                ok._replace(smem=ok.smem + 4), ok._replace(swap=True)):
+        with pytest.raises(ValueError):
+            traj_dp_kernel.check_plan(bad, 4633, 580)
+    with pytest.raises(ValueError):  # longer than the plan holds
+        traj_dp_kernel.check_plan(ok, 4634, 580)
+
+
+def test_dp_tasks_group_variants_by_metric():
+    """One task a (pair, metric); a second variant of a kind opens another."""
+    T = traj_dp_kernel
+    spec = [v[1:] for v in D.dp_variants()]
+    assert T.tasks(spec) == (T.Task(T.PLANAR_ALL, (0, 2, 4, 6, 8), 0.009, 0.009),
+                             T.Task(T.SPHERICAL_ALL, (1, 3, 5, 7, -1), 0.009, 9000.0))
+    assert T.tasks([("discret_frechet", "euclidean", 0.0)]) == (
+        T.Task(T.FRECHET_ONLY, (-1, -1, -1, -1, 0), 0.0, 0.0),)
+    got = T.tasks([("edr", "spherical", 0.5), ("dtw", "euclidean", 0.0),
+                   ("edr", "spherical", 0.7), ("discret_frechet", "euclidean", 0.0)])
+    assert got == (T.Task(T.SPHERICAL_ALL, (-1, -1, 0, -1, -1), 0.5, 0.0),
+                   T.Task(T.PLANAR_ALL, (1, -1, -1, -1, 3), 0.0, 0.0),
+                   T.Task(T.SPHERICAL_ALL, (-1, -1, 2, -1, -1), 0.7, 0.0))
 
 
 def _per_sm(threads, chunk, k):
@@ -167,7 +275,18 @@ def test_frechet_plain_reached_cells():
 
 
 def test_cells_counts_the_true_grids():
-    assert traj_dp_kernel.cells([4633, 10], [580, 3]) == 4633 * 580 + 30
+    """The cells, and the operations behind chip_smoke.py's bound: a cell's
+    cost once for each metric the variants use, and one step a variant."""
+    import chip_smoke
+
+    n, m = [4633, 10], [580, 3]
+    cells = traj_dp_kernel.cells(n, m)
+    assert cells == 4633 * 580 + 30
+    spec = [v[1:] for v in D.dp_variants()]
+    assert chip_smoke.fly_bound(n, m, spec)[2] == cells * (7 + 16 + 39)
+    assert chip_smoke.fly_bound(n, m, [("discret_frechet", "euclidean", 0.0)])[2] == cells * 10
+    two_eps = [("edr", "spherical", 0.5), ("edr", "spherical", 0.7), ("lcss", "euclidean", 0.1)]
+    assert chip_smoke.fly_bound(n, m, two_eps)[2] == cells * (16 + 7 + 6 + 6 + 4)
 
 
 @pytest.fixture
@@ -177,22 +296,25 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _dp_check(p, q, n, m, eps=0.009):
-    spec = [v[1:] for v in D.dp_variants(eps)]
+def _dp_check(p, q, n, m, eps=0.009, variants=None, plan=None):
+    """One launch against ``dp_metrics`` on the card (EDR, LCSS and the
+    discrete Frechet exactly, DTW and ERP 1e-5 relative), and a second
+    launch with the same bits."""
+    variants = variants or [v[1:] for v in D.dp_variants(eps)]
     pc, qc = p.cuda(), q.cuda()
     before = traj_dp_kernel.launch_count
-    out = traj_dp_kernel.traj_dp(pc, qc, n, m, G, spec)
+    out = traj_dp_kernel.traj_dp(pc, qc, n, m, G, variants, plan=plan)
     torch.cuda.synchronize()
     assert traj_dp_kernel.launch_count == before + 1
-    ref = D.dp_metrics(pc, qc, n.cuda(), m.cuda(), G, spec)
-    for k, (key, kind, _, _) in enumerate(D.dp_variants(eps)):
+    ref = D.dp_metrics(pc, qc, n.cuda(), m.cuda(), G, variants)
+    for k, (kind, metric, e) in enumerate(variants):
         got, want = out[:, k].cpu(), ref[:, k].cpu()
         if kind in ("edr", "lcss", "discret_frechet"):
-            assert torch.equal(got, want), key
+            assert torch.equal(got, want), (kind, metric, e)
         else:
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=0, msg=key)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0, msg=f"{kind} {metric}")
     # no atomics: the same bits again
-    assert torch.equal(out, traj_dp_kernel.traj_dp(pc, qc, n, m, G, spec))
+    assert torch.equal(out, traj_dp_kernel.traj_dp(pc, qc, n, m, G, variants, plan=plan))
     return out
 
 
@@ -213,14 +335,50 @@ def test_dp_kernel_spherical_eps_on_card(card):
 
 
 @pytest.mark.gpu
-def test_dp_kernel_strided_diagonals_match_plain_on_card(card):
-    """Diagonals longer than a block's 1024 threads, so that a thread
-    updates more than one cell of a diagonal, as in the (5120, 5120)
-    bucket."""
-    p, q, n, m = _batch([(1100, 1100), (1500, 1200)], seed=21)
-    threads, w, _ = traj_dp_kernel.launch_plan(1500, 1200)
-    assert threads == 1024 < w
-    _dp_check(p, q, n, m)
+@pytest.mark.parametrize("shapes,cluster,swap,seed", [
+    ([(70, 20)], 1, False, 41),                       # one strip
+    ([(90, 200), (150, 170)], 1, True, 41),           # several strips in a block; n < m
+    ([(200, 150), (120, 199), (37, 5)], 4, False, 41),  # a cluster; ragged lengths
+    # the ring wraps: across blocks (a part-filled last block), and in a block
+    ([(300, 260), (260, 300)], 3, False, 42),
+    ([(300, 97), (97, 300)], 1, True, 43),
+    ([(400, 300), (211, 300)], 2, False, 44),
+])
+def test_dp_kernel_plan_branches_on_card(shapes, cluster, swap, seed, card):
+    """Each branch a plan has (one strip or several, a block or a cluster,
+    either side across the lanes, the hand-off ring wrapping in a block and
+    across blocks) against the plain version."""
+    p, q, n, m = _batch(shapes, seed=seed)
+    plan = traj_dp_kernel.make_plan(int(n.max()), int(m.max()), cluster, swap)
+    assert plan.cluster == cluster
+    _dp_check(p, q, n, m, plan=plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variants", [
+    [("dtw", "euclidean", 0.0), ("lcss", "euclidean", 0.05)],
+    [("erp", "spherical", 0.0)],
+    [("discret_frechet", "euclidean", 0.0), ("dtw", "spherical", 0.0),
+     ("edr", "euclidean", 0.02)],
+    [("edr", "spherical", 900.0), ("edr", "spherical", 3000.0), ("lcss", "spherical", 900.0)],
+])
+def test_dp_kernel_variant_subsets_on_card(variants, card):
+    """Subsets of one metric and of both, in any order, and two EDRs of
+    different eps (two tasks of one metric)."""
+    _dp_check(*_batch([(90, 60), (60, 90), (75, 75)], seed=50), variants=variants)
+
+
+@pytest.mark.gpu
+def test_dp_kernel_bucket_plans_on_card(card):
+    """The plans the [flyability] batch's two buckets take on the card (a
+    block of strips a task; a cluster a task), on pairs cut to 300 rows:
+    past two turns of the 128-row hand-off ring, so that it wraps and a
+    strip waits on the reader, while the plain version stays quick."""
+    for B, nmax, mmax, seed in ((64, 4633, 580, 60), (2, 4633, 4633, 61)):
+        plan = traj_dp_kernel.card_plan(B, 2, nmax, mmax, "cuda")
+        assert not plan.swap and (plan.rows, plan.cols) == (nmax, mmax)
+        p, q, n, m = _batch([(300, mmax)] * 2, seed=seed, step=0.01)
+        _dp_check(p, q, n, m, plan=plan)
 
 
 @pytest.mark.gpu

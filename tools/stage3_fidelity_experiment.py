@@ -18,17 +18,19 @@ warmup-cosine schedule, 1000 steps. Reads both packages, writes only under
 (``--part all`` runs them in that order, seeds 0-2.) The parts:
 
   - ``stage1``: the port trains stage 1 on the CPU for ``--stage1_minutes``
-    (the step count from a timed probe: 12 steps less 4), writes it as the
-    port's checkpoint and, unchanged (the JAX tree layout), as the JAX
-    package's; computes x' (the tau = 0 round trip) of both splits in both
-    packages and records their distance and the stage-1 reconstruction
-    error. Every stage-3 run below trains on the port's x' of the train
+    (the step count from a timed probe after a warm-up: 12 steps less 4),
+    writes it as the port's checkpoint and, unchanged (the JAX tree
+    layout), as the JAX package's; computes x' (the tau = 0 round trip) of
+    both splits in both packages and records their distance and the
+    stage-1 reconstruction error. Every stage-3 run below trains on the port's x' of the train
     split (each runner's own sweep is replaced by it), so both packages
     see the same (x, x') pairs; a near-tie in the trained codebooks moves
     a token between the packages' own sweeps.
   - ``jax --seed s``: the JAX runner ``train_stage3(seed=s)`` (its own init,
     its device batch order ``device_epoch_indices(key(s + 2))``, its dropout
-    keys from ``key(s + 1)``), the loss of every step.
+    keys from ``key(s + 1)``), the loss of every step. With ``--port_init``
+    (the converse of arm (c)): from the port runner's init at seed s
+    (``utils/convert.py::fe_to_jax``), JAX's own order and keys kept.
   - ``port --seed s``: the port's runner ``train_stage3(seed=s)`` (its own
     init, ``_batch_order``, its generator), the loss of every step. With
     ``--jax_init`` (arm (c)): from the JAX runner's init at seed s, the
@@ -78,6 +80,9 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
 
 RECIPE = dict(compute_dtype="bfloat16", fast_norm=True, bf16_mu=True)
+# the arms' runs: each package's own (b), the port from JAX's init (c), JAX
+# from the port's init (the converse of (c))
+SIDES = ("jax", "port", "port_jinit", "jax_pinit")
 LOSS_AT = (100, 250, 500, 1000)
 
 
@@ -148,12 +153,12 @@ def part_stage1(args):
         for ext in ("", ".meta.json"):
             shutil.copyfile(args.stage1_ckpt + ext, p["s1"] + ext)
     probe, steps, s1_min = [], None, None
-    for n in (4, 12) if not args.stage1_ckpt else ():
+    for n in (2, 4, 12) if not args.stage1_ckpt else ():  # the first call warms up
         t0 = time.time()
         runner.train_stage1(cfg, data, max_steps=n, device="cpu", log_interval=10**9)
         probe.append(time.time() - t0)
     if probe:
-        probe = (probe[1] - probe[0]) / 8
+        probe = (probe[2] - probe[1]) / 8
         steps = max(int(args.stage1_minutes * 60 / probe), 10)
         t0 = time.time()
         runner.train_stage1(cfg, data, max_steps=steps, device="cpu", save_path=p["s1"],
@@ -199,30 +204,53 @@ def _xprime_train(wd):
     return np.load(_paths(wd)["xprime"])["train"]
 
 
+def _port_init(wd, seed):
+    """The port runner's enhancer init at ``seed`` (``init_stage3`` from
+    ``torch.Generator().manual_seed(seed)``, the recipe's modules) as a JAX
+    params tree."""
+    import torch
+
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.train.stage3 import init_stage3
+    from tvqvae_tpu_torch.utils import convert
+
+    _, cfg = _configs(wd)
+    data, _ = _data(wd)
+    fe = FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
+                                      RECIPE["compute_dtype"], RECIPE["fast_norm"])
+    return convert.fe_to_jax(init_stage3(fe, torch.Generator().manual_seed(seed), "cpu"))
+
+
 def part_jax(args):
-    _jax()
+    jax = _jax()
     import jax.numpy as jnp
 
     from tvqvae_tpu.train import runner as jrunner
     from tvqvae_tpu.train import stage3 as jst3
 
     wd, p, seed = args.workdir, _paths(args.workdir), args.seed
+    name = f"jax_pinit_s{seed}" if args.port_init else f"jax_s{seed}"
     jcfg, _ = _configs(wd)
     _, jdata = _data(wd)
     rec = _Losses()
     loop, sweep, xprime = jrunner._loop, jst3.precompute_xprime_dataset, _xprime_train(wd)
+    init = jrunner.init_stage3
     jrunner._loop = functools.partial(loop, log_interval=1)  # the loss of every step
     jst3.precompute_xprime_dataset = lambda *a, keep_on_device=False, **k: (
         jnp.asarray(xprime) if keep_on_device else xprime)
+    if args.port_init:
+        tree = jax.tree.map(jnp.asarray, _port_init(wd, seed))
+        jrunner.init_stage3 = lambda rng, fe, x: tree
     t0 = time.time()
     try:
-        jrunner.train_stage3(jcfg, jdata, p["s1_jax"], os.path.join(wd, f"jax_s{seed}"),
+        jrunner.train_stage3(jcfg, jdata, p["s1_jax"], os.path.join(wd, name),
                              logger=rec, max_steps=args.steps, seed=seed, resume=False,
                              **RECIPE)
     finally:
         jrunner._loop, jst3.precompute_xprime_dataset = loop, sweep
-    _write(wd, f"jax_s{seed}.json", {"seed": seed, "minutes": (time.time() - t0) / 60,
-                                     "loss": rec.loss})
+        jrunner.init_stage3 = init
+    _write(wd, f"{name}.json", {"seed": seed, "minutes": (time.time() - t0) / 60,
+                                "loss": rec.loss})
 
 
 def _port_run(args, name, seed, patch=None):
@@ -500,7 +528,8 @@ def part_report(args):
     with open(os.path.join(wd, "stage1.json")) as fh:
         rep["stage1"] = json.load(fh)
     for name in sorted(os.listdir(wd)):
-        if not re.fullmatch(r"(jax_s\d+|port_s\d+|port_jinit_s\d+|arm_a|card)\.json", name):
+        if not re.fullmatch(r"(jax_s\d+|jax_pinit_s\d+|port_s\d+|port_jinit_s\d+|arm_a|card)\.json",
+                            name):
             continue
         run = name[:-5]
         with open(os.path.join(wd, name)) as fh:
@@ -523,7 +552,7 @@ def part_report(args):
         rep["runs"][run] = {**score(enhance), "minutes": log["minutes"],
                             **{f"loss_{s}": _smoothed(log["loss"], s) for s in LOSS_AT}}
         print(run, json.dumps(rep["runs"][run]), flush=True)
-    for side in ("jax", "port", "port_jinit"):
+    for side in SIDES:
         runs = [v for k, v in rep["runs"].items() if k.startswith(side + "_s")]
         if runs:
             rep[side + "_seeds"] = {m: [min(r[m] for r in runs), float(np.mean([r[m] for r in runs])),
@@ -612,7 +641,7 @@ def part_stats(args):
     with open(os.path.join(args.workdir, "report.json")) as fh:
         runs = json.load(fh)["runs"]
     sides = {side: [v for k, v in runs.items() if re.fullmatch(side + r"_s\d+", k)]
-             for side in ("jax", "port", "port_jinit")}
+             for side in SIDES}
     sides = {k: v for k, v in sides.items() if v}
     out = {}
     for m in ("heldout_l1", "fid_fe_xprime_test", "fid_gen_fe", *(f"loss_{s}" for s in LOSS_AT)):
@@ -645,6 +674,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cpu", help="bias_order: the device")
     ap.add_argument("--jax_init", action="store_true",
                     help="port: start from the JAX runner's init at --seed")
+    ap.add_argument("--port_init", action="store_true",
+                    help="jax: start from the port runner's init at --seed")
     args = ap.parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
     if args.part != "all":
