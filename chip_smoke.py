@@ -193,6 +193,37 @@ It needs no JAX and no network. Phases, each fatal on failure:
      deterministic cuDNN. Each rank's VQ launches come back to this process
      (``launches_by_path.parallel``, and (g)'s as ``launches_by_path.tp``);
      the two-rank steps' ms and each rank's peak memory are printed.
+ 14f. bundle: the train CLI's default ``--bundle_steps 10``
+     (``train/multistep.py``: each stage's step captured once as a CUDA
+     graph and replayed a bundle at a time). The counters set to 0, under
+     deterministic cuDNN and PyTorch's deterministic algorithms, each case
+     through its runner from one seeded state on phase 7's data, in
+     bundles of 10 and step by step, 23 steps (two bundles and a 3-step
+     tail), validating and snapshotting at step 20: (a) stage 1 at the
+     published width in float32, (b) stage 1 in the production recipe,
+     (c) stage 2 on precomputed tokens over phase 8's frozen stage 1, (d)
+     stage 3 on a precomputed x' (dropout 0.5), (e) stage 1 at the small
+     config on the train CLI's small set (below) on the host feed (a
+     bundle's batches staged on the card) with
+     k-means init and dead-code expiry (off when published: the latch is
+     set before the capture, the expiry draws replay). The
+     final parameters,
+     BatchNorm statistics, codebooks and AdamW state, the step-20
+     snapshots with their generator states, the logged bundle means (the
+     eager steps' metrics summed in order and divided by 10) and tail
+     steps, and the validations: all bit-equal; VQ launches 2 a stage-1
+     step and validation batch, the replays' counted by the graph's
+     recorded launches; (a) resumed in bundles from the step-20 snapshot
+     (3 steps left) bit-equal to the straight run; one captured
+     published-width stage-1 step against the same step run eagerly with
+     the plain VQ twin (indices equal, loss 1e-5, codebooks 1e-4 + 1e-4
+     relative); the train CLI at its default in a subprocess on the small
+     config (``--stage all``, 23 steps a stage: each stage's step captured
+     once). Then, at PyTorch's defaults, each case's steady ms a step eager
+     and bundled (CUDA events over 20 steps), the capture's seconds, the
+     peak memory above the state beside the graph's pool, and device busy
+     and idle share of one bundle beside one eager step (torch.profiler);
+     its VQ launches are ``launches_by_path.bundle``.
  15. ckpt: each checkpoint's bytes, write and read seconds; one
      published-width stage-1 snapshot's bytes and stall; then, the counters
      set to 0 again, ``TrainedModelSampler.from_checkpoints`` at the
@@ -1047,15 +1078,18 @@ def profile_phase(torch, sampler, series, wall_ms):
 class StepRecorder:
     """The logger ``train_stage1`` calls: each step's loss as a device tensor
     (read after the run, so nothing waits for the device between steps) and
-    a CUDA event recorded after the step's work; the validations."""
+    a CUDA event recorded after the step's work; the validations; every
+    logged train metric by step (``train``)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.losses, self.events, self.val, self.acc = [], [], [], []
+        self.train = {}
         self.t_train = self.t_val = None  # host clock at the last train and validation logs
 
     def log_metrics(self, metrics, step):
         if "train/loss" in metrics:
+            self.train[step] = {k: v for k, v in metrics.items() if k.startswith("train/")}
             self.losses.append(metrics["train/loss"])
             self.acc.append(metrics.get("train/acc"))
             self.events.append(self.torch.cuda.Event(enable_timing=True))
@@ -4749,6 +4783,416 @@ def analysis_phase(torch, work, figures, device="cuda"):
     return secs
 
 
+# ---------------------------------------------------------------------------
+# [bundle]: the train CLI's default --bundle_steps 10 (train/multistep.py)
+
+BUNDLE, BUNDLE_STEPS, BUNDLE_SNAPSHOT = 10, 23, 20  # two bundles and a 3-step tail; the resume
+BUNDLE_WARM, BUNDLE_TIMED = 3, 2  # eager steps before the timed ones; bundles timed after capture
+BUNDLE_KINDS = {"a": "stage 1, float32", "b": "stage 1, production recipe",
+                "c": "stage 2 on precomputed tokens", "d": "stage 3 on a precomputed x'",
+                "e": "stage 1, small config, host feed, k-means init and dead-code expiry"}
+BUNDLE_TIMED_KINDS = "abcd"  # (e) guards the latch and the dead-code draws, off when published
+BUNDLE_KMEANS = {**SMALL_CFG, "VQ-VAE": {**SMALL_CFG["VQ-VAE"], "kmeans_init": True,
+                                        "threshold_ema_dead_code": 2}}
+
+
+def bundle_run(torch, kind, bundle, path, data, frozen, cfg_dict=None, device="cuda"):
+    """Case ``kind`` of BUNDLE_KINDS through its runner for BUNDLE_STEPS
+    steps in bundles of ``bundle``, validating and snapshotting to
+    ``path + ".train"`` at BUNDLE_SNAPSHOT, resuming from that snapshot
+    where ``path`` has one and no checkpoint; ``cfg_dict`` (default: none,
+    the published config; case (e) takes ``BUNDLE_KMEANS``) in the reference
+    schema. -> (state, recorder)."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.train import runner
+
+    cfg = Config.from_dict({**(BUNDLE_KMEANS if kind == "e" else cfg_dict or {}),
+                            "trainer_params": {"val_check_interval": dict.fromkeys(
+                                ("stage1", "stage2", "stage3"), BUNDLE_SNAPSHOT)}})
+    rec = StepRecorder(torch)
+    kw = dict(max_steps=BUNDLE_STEPS, device=device, logger=rec, log_interval=1,
+              bundle_steps=bundle, save_path=path)
+    if kind in "abe":
+        state = runner.train_stage1(cfg, data, data_on_device=kind != "e", **kw,
+                                    **(PRODUCTION if kind == "b" else {}))
+    elif kind == "c":
+        state = runner.train_stage2(cfg, data, frozen, **kw)
+    else:
+        state = runner.train_stage3(cfg, data, frozen, **kw)
+    return state, rec
+
+
+def state_tensors(torch, state) -> dict:
+    """Every tensor a train state holds: its modules' parameters and
+    buffers (the BatchNorm statistics), its codebooks, AdamW's moments and
+    step count."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.nn.Module):
+            out.update({f"{f.name}.{k}": t for k, t in v.state_dict().items()})
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{c.name}": getattr(v, c.name) for c in dataclasses.fields(v)})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adamw.{i}.{k}": t for k, t in st.items()})
+    return out
+
+
+def differences(torch, a, b, at=""):
+    """Where two nested payloads (dicts, lists, tensors, numbers, strings)
+    differ, bit for bit."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [f"{at} (keys)"]
+        return [d for k in a for d in differences(torch, a[k], b[k], f"{at}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [at]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in differences(torch, x, y, f"{at}/{i}")]
+    if torch.is_tensor(a):
+        same = (torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a, b))
+        return [] if same else [at]
+    return [] if a == b else [at]
+
+
+def check_bundle_means(torch, label, eager, bundled, start=0):
+    """The bundled run from ``start`` logged, at each bundle's end, the
+    eager run's step metrics summed in step order from zeros and divided by
+    the bundle's length (the multistep's arithmetic), and at each tail step
+    that step's metrics: all bit-equal. -> the steps it logged."""
+    tail = (BUNDLE_STEPS - start) % BUNDLE
+    ends = list(range(start + BUNDLE, BUNDLE_STEPS - tail + 1, BUNDLE))
+    want = ends + list(range(BUNDLE_STEPS - tail + 1, BUNDLE_STEPS + 1))
+    check(sorted(bundled.train) == want,
+          f"[bundle] {label}: logged at steps {sorted(bundled.train)}, expected {want}")
+    prev = start
+    for s in want:
+        n = s - prev
+        for k, got in bundled.train[s].items():
+            ref = torch.zeros_like(eager.train[s][k])
+            for t in range(prev + 1, s + 1):
+                ref += eager.train[t][k]
+            ref = ref / n if n > 1 else eager.train[s][k]
+            check(torch.equal(got, ref),
+                  f"[bundle] {label}: {k} at step {s} is {float(got)!r}, eager {float(ref)!r}")
+        prev = s
+    return want
+
+
+def clone_stage1_state(torch, state):
+    """A copy of a stage-1 train state: the model, codebooks, AdamW (its
+    moments and step count) and schedule, none shared."""
+    import copy
+
+    from tvqvae_tpu_torch.models.vq import CodebookState
+    from tvqvae_tpu_torch.train.optim import adamw
+    from tvqvae_tpu_torch.train.stage1 import Stage1TrainState
+
+    model = copy.deepcopy(state.model)
+    opt = state.optimizer
+    optimizer, scheduler = adamw(model.parameters(), opt.schedule,
+                                 weight_decay=opt.param_groups[0]["weight_decay"],
+                                 mu_dtype=opt.mu_dtype, nu_dtype=opt.nu_dtype)
+    optimizer.load_state_dict(opt.state_dict())
+    scheduler.load_state_dict(state.scheduler.state_dict())
+    codebooks = [CodebookState(*(t.clone() for t in (c.embed, c.embed_avg, c.cluster_size,
+                                                     c.initted))) for c in (state.vq_l, state.vq_h)]
+    return Stage1TrainState(model, *codebooks, optimizer, scheduler, state.step)
+
+
+def captured_twin_check(torch, vq_kernel, state, x):
+    """One published-width stage-1 step captured as a CUDA graph and
+    replayed, the VQ kernel inside it, against the same step run eagerly
+    with the kernel's plain twin in its place, from a copy of the same state
+    on the same batch and generator state: ``published_train_twin_check``'s
+    bounds (indices equal, loss within 1e-5 relative, codebooks within
+    1e-4 + 1e-4 relative), and 2 launches counted by the replay."""
+    from tvqvae_tpu_torch.models import vq as vq_module
+    from tvqvae_tpu_torch.train.multistep import WARMUP, Multistep
+    from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    step = make_stage1_train_step(in_place=True)
+    ms = Multistep(lambda: step(state, x, gen)[1], state, gen, state.step + WARMUP + 1)
+    ms.bundle(WARMUP)  # the eager warm-up steps: nothing captured yet
+    check(ms.graph is None, "[bundle] twin: captured during the warm-up")
+    twin, twin_gen = clone_stage1_state(torch, state), gen.get_state()
+    seen = []
+    hook = state.model.register_forward_hook(
+        lambda m, i, o: seen.append((o.vq_l.indices, o.vq_h.indices)))
+    launches = vq_kernel.launch_count
+    try:
+        loss = float(ms.bundle(1)["loss"])  # captured, then replayed once
+    finally:
+        hook.remove()
+    check(ms.replays == 1 and ms.vq_launches == 2 and vq_kernel.launch_count - launches == 2,
+          f"[bundle] twin: {ms.replays} replays, {ms.vq_launches} launches in the graph, "
+          f"{vq_kernel.launch_count - launches} counted")
+    twin_seen = []
+    twin.model.register_forward_hook(
+        lambda m, i, o: twin_seen.append((o.vq_l.indices, o.vq_h.indices)))
+    vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats_plain
+    try:
+        g = torch.Generator(device="cuda")
+        g.set_state(twin_gen)
+        p_loss = float(make_stage1_train_step()(twin, x, g)[1]["loss"])
+    finally:
+        vq_module.nearest_codes_stats = vq_kernel.nearest_codes_stats
+    for band, a, b in zip(("lf", "hf"), seen[0], twin_seen[0]):
+        check(torch.equal(a, b), f"[bundle] twin: captured {band} indices differ from plain")
+    check(abs(loss - p_loss) <= 1e-5 * abs(p_loss), f"[bundle] twin: loss {loss} vs plain {p_loss}")
+    errs = {}
+    for band in ("vq_l", "vq_h"):
+        for f in ("embed", "embed_avg", "cluster_size"):
+            a, b = getattr(getattr(state, band), f), getattr(getattr(twin, band), f)
+            errs[f"{band}.{f}"] = float((a - b).abs().max())
+            check(bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs()).all()),
+                  f"[bundle] twin: {band}.{f} off by {errs[f'{band}.{f}']}")
+    print(f"[bundle] published-width stage-1 step captured (VQ kernel inside the graph, 2 "
+          f"launches counted by its replay) vs the eager step with the plain VQ twin: indices "
+          f"equal ({seen[0][0].numel()} LF, {seen[0][1].numel()} HF tokens), loss {loss:.6f} vs "
+          f"{p_loss:.6f}, codebook max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+
+
+def bundle_cli_start(work, device="cuda"):
+    """The train CLI with its default ``--bundle_steps`` (10) in a
+    subprocess: ``--stage all`` for BUNDLE_STEPS steps on the small config
+    over 64 synthetic series of L=127. -> (process, start time, its
+    directory)."""
+    from tvqvae_tpu_torch.data import make_synthetic_trajectories, save_npz
+
+    root = os.path.join(work.root, "bundle_cli")
+    os.makedirs(root, exist_ok=True)
+    save_npz(os.path.join(root, "small.npz"),
+             *make_synthetic_trajectories(n=64, channels=C, length=127, seed=5))
+    with open(os.path.join(root, "small.json"), "w") as f:
+        json.dump(SMALL_CFG, f)
+    proc = cli_subprocess(work, "train", [
+        "--dataset_file", os.path.join(root, "small.npz"), "--config",
+        os.path.join(root, "small.json"), "--model_save_dir", os.path.join(root, "models"),
+        "--run_dir", os.path.join(root, "runs"), "--stage", "all", "--max_steps",
+        str(BUNDLE_STEPS), "--no_val_metrics", "--device", device])
+    return proc, time.perf_counter(), root
+
+
+def check_bundle_cli(proc, t0, root, capture=True):
+    """The train CLI exited 0, captured each stage's step once, and wrote
+    every stage with its BUNDLE_STEPS steps."""
+    out, _ = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"the train CLI exited {proc.returncode}:\n{out[-3000:]}")
+    captured = re.findall(r"\[(stage\d)\] step captured as one CUDA graph in ([0-9.]+)s", out)
+    check([s for s, _ in captured] == (["stage1", "stage2", "stage3"] if capture else []),
+          f"the train CLI captured {captured}:\n{out[-3000:]}")
+    for s in ("1", "2", "3"):
+        with open(os.path.join(root, "models", "small", f"stage{s}.meta.json")) as f:
+            done = json.load(f)["completed_step"]
+        check(done == BUNDLE_STEPS, f"the train CLI's stage {s} completed {done} steps")
+    print(f"[bundle] the train CLI (a subprocess, its default --bundle_steps 10, --stage all, "
+          f"{BUNDLE_STEPS} steps a stage on the small config): each stage's step captured once "
+          f"(" + ", ".join(f"{s} {t} s" for s, t in captured) + f"), every stage written with "
+          f"{BUNDLE_STEPS} steps; {time.perf_counter() - t0:.1f} s from its start", flush=True)
+
+
+def bundle_inputs(torch, kind, state, data, frozen, horizon):
+    """-> (step, generator, feed) of case ``kind`` as its runner builds
+    them, from ``state`` on, for steps up to ``horizon``."""
+    from tvqvae_tpu_torch.train import runner
+    from tvqvae_tpu_torch.train.stage1 import make_stage1_train_step
+    from tvqvae_tpu_torch.train.stage2 import precompute_token_dataset, stage2_train_step_tokens
+    from tvqvae_tpu_torch.train.stage3 import make_stage3_train_step_pre, precompute_xprime_dataset
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    X = torch.from_numpy(data.X_train).cuda()
+    if kind in "ab":
+        fn = make_stage1_train_step(in_place=True)
+        feed = runner._Feed((X,), B, horizon, 0, "cuda", state.step)
+        return (lambda: fn(state, feed.next()[0], gen)[1]), gen, feed
+    if kind == "c":
+        tok_l, tok_h = precompute_token_dataset(frozen, X, batch_size=SWEEP_BATCH)
+        feed = runner._Feed((tok_l, tok_h, data.y_train), 16, horizon, 0, "cuda", state.step)
+        return (lambda: stage2_train_step_tokens(state, *feed.next(), gen)[1]), gen, feed
+    fn = make_stage3_train_step_pre()
+    xprime = precompute_xprime_dataset(frozen, X, batch_size=XPRIME_BATCH, keep_on_device=True)
+    feed = runner._Feed((X, xprime), 16, horizon, 0, "cuda", state.step)
+    return (lambda: fn(state, *feed.next(), gen)[1]), gen, feed
+
+
+def bundle_timing(torch, vq_kernel, kind, state, data, frozen, smi):
+    """Case ``kind``'s step from ``state`` on, eager and in bundles (cuDNN
+    and PyTorch at their defaults): steady ms a step by CUDA events over
+    BUNDLE_TIMED bundles' worth of steps after BUNDLE_WARM eager ones and
+    after the capturing bundle, the capture's seconds, the peak memory above
+    the state with the graph's pool beside the eager steps', and the device
+    busy ms and idle share of one bundle beside one eager step's
+    (torch.profiler). -> the VQ launches a replay counts."""
+    from tvqvae_tpu_torch.train.multistep import Multistep
+
+    n = BUNDLE * BUNDLE_TIMED
+    horizon = state.step + BUNDLE_WARM + n + 1 + (BUNDLE_TIMED + 2) * BUNDLE
+    step, gen, feed = bundle_inputs(torch, kind, state, data, frozen, horizon)
+
+    def events_ms(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    eager = Multistep(step, state, gen, horizon, feed.prepare)
+    for _ in range(BUNDLE_WARM):
+        eager.single()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = events_ms(lambda: [eager.single() for _ in range(n)]) / n
+    eager_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bundled = Multistep(step, state, gen, horizon, feed.prepare)
+    torch.cuda.reset_peak_memory_stats()
+    first_ms = events_ms(lambda: bundled.bundle(BUNDLE))
+    bundled_ms = events_ms(lambda: [bundled.bundle(BUNDLE) for _ in range(BUNDLE_TIMED)]) / n
+    bundled_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    # the graph's private pool: the allocator's segments under its pool id
+    pool = tuple(bundled.graph.pool())
+    segments = [sg for sg in torch.cuda.memory_snapshot() if "segment_pool_id" in sg]
+    pool_bytes = sum(sg["total_size"] for sg in segments if tuple(sg["segment_pool_id"]) == pool)
+    pool_gb = f"{pool_bytes / 2 ** 30:.3f} GiB" if segments else "not measured"
+    launches = vq_kernel.launch_count
+    busy_b = print_profile(f"[bundle] ({kind}) one bundle of {BUNDLE}",
+                           lambda: bundled.bundle(BUNDLE), BUNDLE * bundled_ms, n_convs=0)
+    check(vq_kernel.launch_count - launches == BUNDLE * bundled.vq_launches,
+          f"[bundle] ({kind}): {vq_kernel.launch_count - launches} VQ launches counted in a "
+          f"bundle of {BUNDLE} replays of {bundled.vq_launches}")
+    busy_e = print_profile(f"[bundle] ({kind}) one eager step", eager.single, eager_ms,
+                           n_convs=0)
+
+    def idle(busy, wall):
+        return f"{max(0.0, 1 - busy / wall):.3f}" if busy else "not measured"
+
+    print(f"[bundle] ({kind}) {BUNDLE_KINDS[kind]}: steady ms a step eager {eager_ms:.3f}, "
+          f"bundled {bundled_ms:.3f} ({eager_ms / bundled_ms:.3f}x; CUDA events over {n} steps); "
+          f"capture {bundled.capture_s:.3f} s (its bundle {first_ms / 1e3:.3f} s); device busy "
+          f"a step eager {busy_e:.3f} ms (idle share {idle(busy_e, eager_ms)}), bundled "
+          f"{busy_b / BUNDLE:.3f} ms (idle share {idle(busy_b, BUNDLE * bundled_ms)}); peak "
+          f"memory above the state eager {eager_gb:.3f} GiB, bundled {bundled_gb:.3f} GiB, the "
+          f"graph's pool {pool_gb}; VQ launches a replay "
+          f"{bundled.vq_launches} | {smi}", flush=True)
+    return bundled.vq_launches
+
+
+def bundle_phase(torch, vq_kernel, work, data, frozen, smi, cfg_dict=None, device="cuda"):
+    """[bundle]: the counters set to 0, each case of BUNDLE_KINDS (stage 1
+    at the published width in float32 and in the production recipe, stage 2
+    on precomputed tokens at the published prior widths, stage 3 on a
+    precomputed x' at the published enhancer widths, dropout 0.5; and stage
+    1 at a small config on the host feed with k-means init and dead-code
+    expiry) through
+    its runner from one seeded state on the same data, once in bundles of
+    BUNDLE and once step by step, BUNDLE_STEPS steps (two bundles and a
+    3-step tail), under deterministic cuDNN and PyTorch's deterministic
+    algorithms: the final parameters, BatchNorm statistics, codebooks and
+    AdamW state bit-equal, the step-BUNDLE_SNAPSHOT snapshots (their
+    generator states among them) bit-equal, the bundle means and tail steps
+    logged bit-equal to the eager steps' (``check_bundle_means``), the
+    validations equal, the VQ launches 2 a stage-1 step and a validation
+    batch (the sweeps' in stages 2-3); case (a) resumed in bundles from the
+    bundled run's snapshot (fewer steps left than a bundle) bit-equal to the
+    straight run; ``captured_twin_check``; the train CLI at its default in a
+    subprocess (``bundle_cli_start``); then ``bundle_timing`` of (a)-(d).
+    ``cfg_dict`` replaces the published config (a rehearsal at a small one);
+    on the CPU (a rehearsal) nothing is captured, and the twin check and the
+    timing are left out. -> the VQ launches."""
+    from tvqvae_tpu_torch.config import Config
+    from tvqvae_tpu_torch.data import get_data
+    from tvqvae_tpu_torch.utils.checkpoint import load_train_state
+
+    cli = bundle_cli_start(work, device)
+    vq_kernel.launch_count = 0
+    root = os.path.join(work.root, "bundle")
+    # (e) trains on the CLI's small set (L=127)
+    small = get_data(os.path.join(cli[2], "small.npz"), Config().dataset.features)
+
+    def n_val(d):
+        return -(-len(d.X_test) // min(B, len(d.X_test)))
+
+    N = len(data.X_train)
+    expect = {"a": 2 * BUNDLE_STEPS + 2 * n_val(data) * 2, "c": 2 * -(-N // SWEEP_BATCH),
+              "d": 2 * -(-N // XPRIME_BATCH)}
+    expect["b"] = expect["a"]
+    # the k-means init's assignments at the first step: kmeans_iters + 1 a codebook
+    expect["e"] = (2 * BUNDLE_STEPS + 2 * n_val(small) * 2
+                   + 2 * (Config.from_dict(BUNDLE_KMEANS).vqvae.kmeans_iters + 1))
+    final = {}
+    try:
+        with deterministic_cudnn(torch), deterministic_algorithms(torch):
+            for kind in BUNDLE_KINDS:
+                runs, t0 = {}, time.perf_counter()
+                for bundle in (1, BUNDLE):
+                    launches = vq_kernel.launch_count
+                    path = os.path.join(root, f"{kind}{bundle}", "stage")
+                    state, rec = bundle_run(torch, kind, bundle, path,
+                                            small if kind == "e" else data, frozen, cfg_dict,
+                                            device)
+                    got = vq_kernel.launch_count - launches
+                    check(got == expect[kind], f"[bundle] ({kind}) bundle {bundle}: {got} VQ "
+                                               f"launches, expected {expect[kind]}")
+                    runs[bundle] = (state, rec, path)
+                (s1, r1, p1), (sb, rb, pb) = runs[1], runs[BUNDLE]
+                bad = differences(torch, state_tensors(torch, s1), state_tensors(torch, sb))
+                check(not bad and s1.step == sb.step == BUNDLE_STEPS,
+                      f"[bundle] ({kind}): bundled and eager states differ at {bad[:8]}")
+                snaps = [load_train_state(p + ".train") for p in (p1, pb)]
+                bad = differences(torch, *snaps)
+                check(not bad and snaps[0]["step"] == BUNDLE_SNAPSHOT,
+                      f"[bundle] ({kind}): step-{BUNDLE_SNAPSHOT} snapshots differ at {bad[:8]}")
+                logged = check_bundle_means(torch, f"({kind})", r1, rb)
+                check(not differences(torch, r1.val, rb.val),
+                      f"[bundle] ({kind}): validations {rb.val} vs {r1.val}")
+                resumed = ""
+                if kind == "a":
+                    for suffix in ("", ".meta.json"):
+                        os.remove(pb + suffix)  # the snapshot stays
+                    launches = vq_kernel.launch_count
+                    sr, rr = bundle_run(torch, kind, BUNDLE, pb, data, frozen, cfg_dict, device)
+                    bad = differences(torch, state_tensors(torch, s1), state_tensors(torch, sr))
+                    check(not bad, f"[bundle] (a) resumed: differs from the eager run at {bad[:8]}")
+                    check_bundle_means(torch, "(a) resumed", r1, rr, BUNDLE_SNAPSHOT)
+                    check(vq_kernel.launch_count - launches
+                          == 2 * (BUNDLE_STEPS - BUNDLE_SNAPSHOT) + 2 * n_val(data),
+                          "[bundle] (a) resumed: VQ launches")
+                    resumed = (f"; resumed in bundles from the step-{BUNDLE_SNAPSHOT} snapshot "
+                               f"({BUNDLE_STEPS - BUNDLE_SNAPSHOT} steps left, all tail): "
+                               f"bit-equal")
+                    if device == "cuda":
+                        captured_twin_check(torch, vq_kernel, sr,
+                                            torch.from_numpy(data.X_train[B:2 * B]).cuda())
+                    del sr
+                print(f"[bundle] ({kind}) {BUNDLE_KINDS[kind]}: {BUNDLE_STEPS} steps in bundles "
+                      f"of {BUNDLE} bit-equal to step by step (deterministic cuDNN and "
+                      f"algorithms): {len(state_tensors(torch, sb))} state tensors, the "
+                      f"step-{BUNDLE_SNAPSHOT} snapshots with their generator states, metrics "
+                      f"logged at steps {logged} (bundle means, then the tail), "
+                      f"{len(rb.val)} validations; VQ launches {expect[kind]} a run{resumed}; "
+                      f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+                if kind in BUNDLE_TIMED_KINDS:
+                    final[kind] = sb
+                del runs, s1, sb
+        check_bundle_cli(*cli, capture=device == "cuda")
+    finally:
+        if cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].wait()
+    for kind in BUNDLE_TIMED_KINDS if device == "cuda" else ():
+        per_replay = bundle_timing(torch, vq_kernel, kind, final.pop(kind), data, frozen, smi)
+        check(per_replay == (2 if kind in "ab" else 0),
+              f"[bundle] ({kind}): {per_replay} VQ launches in the captured step")
+    return vq_kernel.launch_count
+
+
 def main():
     """Exit 1 without a card, or outside a checkout (the package does not
     import); else every phase, with the run's files in a temp directory."""
@@ -4888,6 +5332,8 @@ def smoke(torch, work, t_start):
     lap("import")
     parallel_launches, tp_launches = parallel_phase(torch, vq_kernel, work, smi)
     lap("parallel")
+    bundle_launches = bundle_phase(torch, vq_kernel, work, data, frozen, smi)
+    lap("bundle")
 
     # ---- the checkpoints: served and generated from disk, counted -----
     ckpt_launches, generating = ckpt_phase(torch, vq_kernel, work, trained, stage2, stage3,
@@ -4972,14 +5418,14 @@ def smoke(torch, work, t_start):
         "launches": (serve_launches + train_launches + stage2_launches + stage3_launches
                      + eval_launches + bf16_launches + ess_launches + quality_launches
                      + preprocess_launches + import_launches + parallel_launches
-                     + tp_launches + ckpt_launches),
+                     + tp_launches + bundle_launches + ckpt_launches),
         "launches_by_path": {"serve": serve_launches, "train": train_launches,
                              "stage2": stage2_launches, "stage3": stage3_launches,
                              "eval": eval_launches, "bf16": bf16_launches,
                              "ess": ess_launches, "quality": quality_launches,
                              "preprocess": preprocess_launches, "import": import_launches,
                              "parallel": parallel_launches, "tp": tp_launches,
-                             "ckpt": ckpt_launches},
+                             "bundle": bundle_launches, "ckpt": ckpt_launches},
         "max_abs_err": max(r["max_abs_err"] for r in kernels.values()),
         "ms": main_numbers["ms"],
         "plain_ms": main_numbers["plain_ms"],

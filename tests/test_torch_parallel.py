@@ -854,19 +854,25 @@ def test_process_slices_identical_order_across_hosts():
 
 @pytest.mark.parametrize("start_step", [0, 1, 3, 7])
 def test_host_feed_gives_the_device_batches(start_step):
-    """``runner._feed``: the host feed (``on_device=False``, what the ranks
-    of a group take), resumed after ``start_step``, yields the batches that
+    """``runner._Feed``: the host feed (``on_device=False``, what the ranks
+    of a group take), resumed after ``start_step`` and staged 3 steps at a
+    time (a bundle's batches; 1 or 2 in the tail), yields the batches that
     the device gather gives one process at the same steps."""
     rng = np.random.default_rng(start_step)
     X = rng.normal(size=(20, 2, 5)).astype(np.float32)
     y = rng.integers(0, 3, size=(20, 1))
     dev = torch.device("cpu")
-    gather = runner._feed((X, y, None), 6, 12, 4, dev)
-    host = runner._feed((X, y, None), 6, 12, 4, dev, start_step, on_device=False)
-    for step in range(start_step + 1, 13):
-        (gx, gy, gn), (hx, hy, hn) = gather(step), host(step)
-        assert gn is None and hn is None
-        assert torch.equal(gx, hx) and torch.equal(gy, hy), step
+    gather = runner._Feed((X, y, None), 6, 12, 4, dev, start_step)
+    host = runner._Feed((X, y, None), 6, 12, 4, dev, start_step, on_device=False, bundle=3)
+    step = start_step
+    while step < 12:
+        k = min(3, 12 - step)
+        host.prepare(k)
+        for _ in range(k):
+            step += 1
+            (gx, gy, gn), (hx, hy, hn) = gather.next(), host.next()
+            assert gn is None and hn is None
+            assert torch.equal(gx, hx) and torch.equal(gy, hy), step
 
 
 def test_one_process_collectives_are_no_ops():

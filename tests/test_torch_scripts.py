@@ -10,8 +10,8 @@ builds answers a request through ``make_server``. Every JAX option the port
 does not run is refused by name and reason (``--no_precompute``,
 ``--host_data`` and ``--data_parallel`` run since data parallelism); every precision flag of the JAX CLIs
 reaches the runners or the sampler with its value; the train CLI's defaults
-are the JAX train CLI's but ``--bundle_steps``; and a JAX ``train`` command
-line parses.
+are the JAX train CLI's, ``--bundle_steps`` 10 among them; and a JAX
+``train`` command line parses.
 """
 
 import functools
@@ -142,18 +142,20 @@ UNPORTED = [
     (train, ["--host_data"]), (train, ["--tp", "2"]), (serve, ["--data_parallel"]),
 ]
 # the reason each refusal gives; the other flags run since data and tensor parallelism
-REFUSED = {"--bundle_steps": "CUDA-graphed step", "--rbg_rng": "no counterpart"}
+# and bundled steps
+REFUSED = {"--rbg_rng": "no counterpart"}
 
 
 @pytest.mark.parametrize("script, flag", UNPORTED,
                          ids=[f"{s.__name__.rsplit('.', 1)[1]}{f[0]}" for s, f in UNPORTED])
 def test_unported_flag_is_refused(script, flag, capsys, monkeypatch):
-    """The JAX flags the port once refused: ``--bundle_steps`` > 1 and
-    ``--rbg_rng`` still are, each naming its reason; ``--tp 2`` is no longer
-    unported, and one process is refused it as the JAX CLI refuses a device
-    count that ``tp`` does not divide; ``--no_precompute``, ``--host_data``
-    and serve's ``--data_parallel`` parse and get past the refusal (to the
-    missing dataset file here; ``tests/test_torch_parallel.py`` runs them)."""
+    """The JAX flags the port once refused: ``--rbg_rng`` still is, naming
+    its reason; ``--tp 2`` is no longer unported, and one process is refused
+    it as the JAX CLI refuses a device count that ``tp`` does not divide;
+    ``--bundle_steps 10``, ``--no_precompute``, ``--host_data`` and serve's
+    ``--data_parallel`` parse and get past the refusal (to the missing
+    dataset file here; ``tests/test_torch_bundle.py`` and
+    ``tests/test_torch_parallel.py`` run them)."""
     if flag[0] == "--tp":
         with pytest.raises(SystemExit) as exc:
             script.main(["--dataset_file", "/nonexistent/flights.npz", *flag])
@@ -172,7 +174,10 @@ def test_unported_flag_is_refused(script, flag, capsys, monkeypatch):
         return
     args = script.build_argparser().parse_args(["--dataset_file", "/nonexistent/f.npz", *flag,
                                                 "--device", "cpu"])
-    assert getattr(args, flag[0][2:]) is True
+    if flag[0] == "--bundle_steps":
+        assert args.bundle_steps == 10
+    else:
+        assert getattr(args, flag[0][2:]) is True
     with pytest.raises(FileNotFoundError):
         script.main(["--dataset_file", "/nonexistent/flights.npz", *flag, "--device", "cpu"])
 
@@ -275,17 +280,17 @@ def test_precision_flag_reaches_the_runner(trained, tmp_path, monkeypatch, scrip
                 assert calls[name][k] is False, (name, k)
 
 
-def test_jax_defaults_the_port_cannot_run_are_not_its_defaults():
+def test_train_defaults_are_the_jax_clis_bundle_steps_included():
     """Every flag the two train parsers share defaults as the JAX CLI's does,
-    but ``--bundle_steps`` (step bundles are not ported: 1, not 10); the
-    generate and serve CLIs default to ``--fast_bn``, as the JAX ones do."""
+    ``--bundle_steps`` 10 included; the generate and serve CLIs default to
+    ``--fast_bn``, as the JAX ones do."""
     j = vars(jtrain.build_argparser().parse_args(["--dataset_file", "d.npz"]))
     p = vars(train.build_argparser().parse_args(["--dataset_file", "d.npz"]))
     shared = set(j) & set(p)
-    assert {"fast_bn", "bf16_mu", "bf16_nu", "bf16_head", "bf16_istft", "bf16", "remat"} <= shared
-    same = shared - {"bundle_steps"}
-    assert {k: p[k] for k in same} == {k: j[k] for k in same}
-    assert (j["bundle_steps"], p["bundle_steps"]) == (10, 1)
+    assert {"fast_bn", "bf16_mu", "bf16_nu", "bf16_head", "bf16_istft", "bf16", "remat",
+            "bundle_steps"} <= shared
+    assert {k: p[k] for k in shared} == {k: j[k] for k in shared}
+    assert (j["bundle_steps"], p["bundle_steps"]) == (10, 10)
     assert (p["fast_bn"], p["bf16_mu"], p["bf16_head"]) == (True, True, True)
     assert p["device"] == "cuda" and p["tp"] == 1
     for script in (generate, serve):

@@ -555,21 +555,21 @@ def test_train_stage3_paths_agree(tiny):
     {"bf16_nu": True}, {"tp": 2},
 ])
 def test_train_stage3_refuses_unported_options(tiny, flag):
-    """Step bundles raise; one process is refused ``tp`` = 2 as JAX refuses
-    it (a world that divides runs, ``tests/test_torch_tp.py``); the precision
-    options run, and reach the enhancer or its optimizer."""
+    """Step bundles run (a bundle of 4 over 2 steps is all tail:
+    ``tests/test_torch_bundle.py`` holds bundles to single steps); one
+    process is refused ``tp`` = 2 as JAX refuses it (a world that divides
+    runs, ``tests/test_torch_tp.py``); the precision options run, and reach
+    the enhancer or its optimizer."""
     data, frozen = tiny
     (name, value), = flag.items()
     if name == "tp":
         with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
             runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
         return
-    if name == "bundle_steps":
-        with pytest.raises(NotImplementedError, match=name):
-            runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
-        return
     state = runner.train_stage3(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
     assert state.step == 2
+    if name == "bundle_steps":
+        return
     unet, opt = state.fe.Unet1D_0, state.optimizer
     moments = next(iter(opt.state.values()))
     got = {"compute_dtype": getattr(unet, unet.stem).compute_dtype == torch.bfloat16,

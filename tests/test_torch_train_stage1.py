@@ -578,21 +578,25 @@ def test_train_stage1_on_cpu_learns_and_validates(tiny_data):
     {"bf16_nu": True}, {"bf16_head": True}, {"bf16_istft": True}, {"tp": 2}, {"rng_impl": "rbg"},
 ])
 def test_train_stage1_refuses_unported_options(tiny_data, flag):
-    """Step bundles and the RNG implementation raise; tensor parallelism runs
-    where the world divides by ``tp`` (``tests/test_torch_tp.py``) and one
-    process is refused ``tp`` = 2 as JAX refuses it; the precision and remat
-    options run, and reach the spec or the optimizer."""
+    """The RNG implementation raises; step bundles run (a bundle of 4 over
+    2 steps is all tail: ``tests/test_torch_bundle.py`` holds bundles to
+    single steps); tensor parallelism runs where the world divides by
+    ``tp`` (``tests/test_torch_tp.py``) and one process is refused ``tp`` =
+    2 as JAX refuses it; the precision and remat options run, and reach the
+    spec or the optimizer."""
     (name, value), = flag.items()
     if name == "tp":
         with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
             runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
         return
-    if name in ("bundle_steps", "rng_impl"):
+    if name == "rng_impl":
         with pytest.raises(NotImplementedError, match=name):
             runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
         return
     state = runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
     assert state.step == 2
+    if name == "bundle_steps":
+        return
     moments = next(iter(state.optimizer.state.values()))
     if name in ("bf16_mu", "bf16_nu"):
         key = "exp_avg" if name == "bf16_mu" else "exp_avg_sq"

@@ -520,22 +520,21 @@ def test_train_stage2_paths_agree(tiny):
     {"bundle_steps": 4}, {"bf16_mu": True}, {"bf16_nu": True}, {"tp": 2},
 ])
 def test_train_stage2_refuses_unported_options(tiny, flag):
-    """Step bundles raise; one process is refused ``tp`` = 2 as JAX refuses
-    it (a world that divides runs, ``tests/test_torch_tp.py``); the bfloat16
-    moments run."""
+    """Step bundles run (a bundle of 4 over 2 steps is all tail:
+    ``tests/test_torch_bundle.py`` holds bundles to single steps); one
+    process is refused ``tp`` = 2 as JAX refuses it (a world that divides
+    runs, ``tests/test_torch_tp.py``); the bfloat16 moments run."""
     data, frozen = tiny
     (name, value), = flag.items()
     if name == "tp":
         with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
             runner.train_stage2(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
         return
-    if name == "bundle_steps":
-        with pytest.raises(NotImplementedError, match=name):
-            runner.train_stage2(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
-        return
     state = runner.train_stage2(_tiny_cfg(), data, frozen, max_steps=2, device="cpu", **flag)
     moments = next(iter(state.optimizer.state.values()))
     assert state.step == 2
+    if name == "bundle_steps":
+        return
     assert moments["exp_avg" if name == "bf16_mu" else "exp_avg_sq"].dtype == torch.bfloat16
 
 

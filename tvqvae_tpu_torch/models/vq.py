@@ -40,6 +40,7 @@ import torch
 
 from tvqvae_tpu_torch.ops.vq_kernel import nearest_codes_stats
 from tvqvae_tpu_torch.parallel.mesh import all_reduce_, data_count, initialized
+from tvqvae_tpu_torch.utils.device import capturing
 
 
 @dataclass(frozen=True)
@@ -158,8 +159,9 @@ def vq_forward(
         raise NotImplementedError(
             "k-means init and dead-code expiry inside a process group: their row draws "
             "would differ between ranks (both are off in the published config)")
-    # the latch reads a flag on the device: only where k-means init is on
-    if train and p.kmeans_init and not bool(state.initted):
+    # the latch reads a flag on the device: only where k-means init is on, and
+    # not inside a CUDA graph capture, which begins once it is set (train/multistep.py)
+    if train and p.kmeans_init and not capturing() and not bool(state.initted):
         means, bins = kmeans(flat.detach(), K, p.kmeans_iters, kmeans_idx, generator)
         state = CodebookState(embed=means, embed_avg=means, cluster_size=bins,
                               initted=torch.ones_like(state.initted))

@@ -24,6 +24,8 @@ are rounded to it from float64, and the iSTFT's window-square envelope and
 its division run in it too (the decode path's bfloat16 iSTFT).
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -85,6 +87,23 @@ def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(a, dtype=like.dtype, device=like.device)
 
 
+def _window(n_fft: int, norm: bool) -> np.ndarray:
+    return hann_window(n_fft)
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(make, n_fft: int, norm: bool, dtype: torch.dtype, device: torch.device):
+    with torch.inference_mode(False):  # a normal tensor, whatever mode first asks for it
+        return _const(make(n_fft, norm), torch.empty(0, dtype=dtype, device=device))
+
+
+def _kernel(make, n_fft: int, norm: bool, like: torch.Tensor) -> torch.Tensor:
+    """``make(n_fft, norm)`` in ``like``'s dtype on its device, copied there
+    once: a copy from the host inside a CUDA graph capture would fail
+    (``train/multistep.py``), and outside one it waits for the device."""
+    return _on_device(make, n_fft, norm, like.dtype, like.device)
+
+
 def time_to_timefreq(x: torch.Tensor, n_fft: int, norm: bool = True) -> torch.Tensor:
     """(B, C, L) time series -> (B, 2C, H, W) time-frequency map."""
     B, C, L = x.shape
@@ -92,7 +111,7 @@ def time_to_timefreq(x: torch.Tensor, n_fft: int, norm: bool = True) -> torch.Te
     pad = n_fft // 2
     nbins = n_fft // 2 + 1
     xf = F.pad(x.reshape(B * C, 1, L), (pad, pad), mode="reflect")
-    out = F.conv1d(xf, _const(_analysis_kernel(n_fft, norm), x), stride=hop)
+    out = F.conv1d(xf, _kernel(_analysis_kernel, n_fft, norm, x), stride=hop)
     W = out.shape[-1]  # out: (B*C, 2*nbins, W) in (k z) order
     out = out.reshape(B, C, nbins, 2, W).transpose(2, 3)
     return out.reshape(B, 2 * C, nbins, W)
@@ -112,9 +131,9 @@ def timefreq_to_time(xf: torch.Tensor, n_fft: int, norm: bool = True) -> torch.T
 
     # (B, 2C, H, W) -> (B*C, 2*nbins, W) with (k z) channel order
     z = xf.reshape(B, C, 2, nbins, W).transpose(2, 3).reshape(B * C, 2 * nbins, W)
-    ola = F.conv_transpose1d(z, _const(_synthesis_kernel(n_fft, norm), xf), stride=hop)
+    ola = F.conv_transpose1d(z, _kernel(_synthesis_kernel, n_fft, norm, xf), stride=hop)
 
-    wsq = _const(hann_window(n_fft), xf).square().reshape(1, 1, n_fft)  # squared in the dtype
+    wsq = _kernel(_window, n_fft, False, xf).square().reshape(1, 1, n_fft)  # squared in the dtype
     env = F.conv_transpose1d(xf.new_ones((1, 1, W)), wsq, stride=hop)
     L_out = (W - 1) * hop
     y = ola[:, 0, pad:pad + L_out] / env[:, 0, pad:pad + L_out]

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from tvqvae_tpu_torch.ops import nvcc
+from tvqvae_tpu_torch.utils.device import capturing
 
 SOURCE = nvcc.CSRC / "vq_nearest.cu"
 MAX_DIM = 512  # a 64-row tile of x at D=512 still fits in shared memory
@@ -49,8 +50,12 @@ CHUNK_CODES = (32, 128)
 BLOCKS_PER_SM = 2  # split the codes until the assign grid has this many blocks a SM
 SCRATCH_ALIGN = 256
 
-# Launches of the CUDA kernel (one per wrapper call that reaches the card).
+# Launches of the CUDA kernel that ran: one per wrapper call that reaches the
+# card outside a CUDA graph capture; a call during a capture records its launch
+# in ``captured_launches`` instead, and whoever replays the graph adds the
+# launches it recorded to ``launch_count`` at each replay (train/multistep.py).
 launch_count = 0
+captured_launches = 0
 
 _lib = nvcc.Library(SOURCE, {
     "vq_nearest_stats": ([
@@ -144,7 +149,7 @@ def _check(flat: torch.Tensor, embed: torch.Tensor) -> None:
 @torch.no_grad()
 def nearest_codes_stats(flat: torch.Tensor, embed: torch.Tensor):
     """(M, D) x (K, D) -> (idx (M,) int32, counts (K,), embed_sum (K, D))."""
-    global launch_count
+    global launch_count, captured_launches
     _check(flat, embed)
     if flat.device.type == "cpu":
         return nearest_codes_stats_plain(flat, embed)
@@ -172,5 +177,8 @@ def nearest_codes_stats(flat: torch.Tensor, embed: torch.Tensor):
             torch.cuda.current_stream(flat.device).cuda_stream,
         )
     _lib.check("vq_nearest_stats", err)
-    launch_count += 1
+    if capturing():
+        captured_launches += 1
+    else:
+        launch_count += 1
     return idx, counts, embed_sum

@@ -25,12 +25,12 @@ its own (minutes and median ms per step of each stage, the VQ kernel's
 launches, the prior forwards a batch and the plain sampler's ms per
 32-batch beside ESS's), and the ``SUMMARY`` line with the JAX tool's keys.
 
-The port trains with ``--bundle_steps 1`` where the JAX CLI defaults to 10.
-A JAX bundle (``tvqvae_tpu/train/runner.py::make_multistep``) scans 10
-steps in one device program whose batch indices and dropout keys derive
-from ``state.step`` as the single step's do: it trains the same steps and
-changes how they are dispatched (and logs bundle means of the train
-metrics).
+It trains with the train CLI's ``--bundle_steps`` default of 10, as the
+JAX tool does: a JAX bundle (``tvqvae_tpu/train/runner.py::make_multistep``)
+scans 10 steps in one device program; the port captures each stage's step
+once as a CUDA graph and replays it 10 times a bundle
+(``train/multistep.py``; on the CPU a loop of the same steps). Either way
+the steps are the single steps and the logged train metrics bundle means.
 """
 
 import argparse

@@ -26,9 +26,13 @@ production recipe's ``--fast_bn --bf16_mu --bf16_head`` on, ``--bf16``,
 the JAX CLI passes them (stage 3 gets ``fast_norm=--fast_bn``);
 ``--host_data`` feeds stage 1 per-step host batches (``data_on_device=False``)
 and ``--no_precompute`` runs the frozen stage 1 inside every step of stages 2
-and 3 (``precompute=False``). The exception is ``--bundle_steps``, 1 here.
-Asking for ``--bundle_steps`` > 1 or ``--rbg_rng`` is an error naming it and
-its reason (``runner.REFUSED``).
+and 3 (``precompute=False``). ``--bundle_steps`` (default 10, as in JAX)
+trains stage 1, stage 2 on precomputed tokens and stage 3 on a precomputed
+x' in bundles of that many steps: on the card each stage's step is captured
+once as a CUDA graph and replayed a bundle at a time, on the CPU a bundle is
+the same steps in a loop; the steps are the single steps, the logged train
+metrics the bundle's means (``train/multistep.py``). Asking for
+``--rbg_rng`` is an error naming it and its reason (``runner.REFUSED``).
 
 Data-parallel training: run this CLI in every rank of a ``torch.distributed``
 process group that the launching code initialised (the JAX CLI has no
@@ -95,9 +99,12 @@ def build_argparser():
                         "the one-sweep precompute (the reference behaviour)")
     p.add_argument("--host_data", action="store_true",
                    help="stage 1: per-step host batches instead of the device-resident gather")
-    p.add_argument("--bundle_steps", type=int, default=1,
-                   help="optimizer steps per dispatch; > 1 is refused: "
-                        + runner.REFUSED["bundle_steps"])
+    p.add_argument("--bundle_steps", type=int, default=10,
+                   help="optimizer steps per host dispatch (stage 1, stage 2 on precomputed "
+                        "tokens, stage 3 on a precomputed x'): on the card one captured CUDA "
+                        "graph of the step replayed that many times, on the CPU a loop of the "
+                        "same steps; the same steps as bundles of 1, train metrics logged as "
+                        "bundle means")
     p.add_argument("--rbg_rng", action="store_true",
                    help="refused: " + runner.REFUSED["rng_impl"])
     p.add_argument("--tp", type=int, default=1,
@@ -125,10 +132,7 @@ def search_tau(cfg, data, paths, device) -> float:
 def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
-    refuse_unported(p, {
-        f"--bundle_steps > 1 ({runner.REFUSED['bundle_steps']})": args.bundle_steps > 1,
-        f"--rbg_rng ({runner.REFUSED['rng_impl']})": args.rbg_rng,
-    })
+    refuse_unported(p, {f"--rbg_rng ({runner.REFUSED['rng_impl']})": args.rbg_rng})
     if args.tp > 1 and process_count() % args.tp:
         p.error(f"{process_count()} devices not divisible by tp={args.tp}")
     dtype = "bfloat16" if args.bf16 else "float32"
@@ -169,7 +173,8 @@ def main(argv=None):
                               cfg.evaluation.batch_size, data.X_train, data.X_test,
                               feature_extractor_type=fx, fcn_variables=fcn_vars,
                               device=args.device)
-    common = dict(max_steps=args.max_steps, seed=args.seed, device=args.device)
+    common = dict(max_steps=args.max_steps, seed=args.seed, device=args.device,
+                  bundle_steps=args.bundle_steps)
     tp = dict(tp=args.tp)
     for stage in stages:
         log = logger(f"stage{stage}" if stage != "fcn" else "fcn")

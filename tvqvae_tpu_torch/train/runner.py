@@ -17,6 +17,19 @@ instead, a deviation its own runner calls non-semantic. ``data_on_device=False``
 (stage 1) feeds the same batches from the host, and ``precompute=False``
 (stages 2 and 3) runs the frozen stage 1 inside every step, as in JAX.
 
+``bundle_steps`` > 1 is JAX's bundled stepping (``make_multistep``): stage
+1 (device gather or host feed), stage 2 on precomputed tokens and stage 3
+on a precomputed x' advance that many steps a host dispatch
+(``train/multistep.py``: on the card one captured CUDA graph of the step,
+replayed; on the CPU the same steps in a loop), the logger gets the
+bundle's means, a remainder smaller than a bundle runs as single steps,
+and the log, validation and snapshot cadences fire where a bundle crosses
+their boundary (``_loop``). The steps and their results are the single
+steps'. As in JAX, the on-the-fly steps of stages 2 and 3 (tau > 0
+included) and every step inside a process group take one step a dispatch.
+JAX's host-fed stage-1 tail draws its batches from another seed; here the
+tail continues the run's order.
+
 Data parallelism (``parallel/``): the runners run unchanged in every rank of
 a ``torch.distributed`` process group that the caller initialised, as JAX's
 do under ``jax.distributed``. With more than one rank they take the JAX
@@ -103,6 +116,7 @@ from tvqvae_tpu_torch.parallel.tp import (
     shard_train_state_tp,
     unshard_train_state_tp,
 )
+from tvqvae_tpu_torch.train.multistep import Multistep
 from tvqvae_tpu_torch.train.optim import adamw
 from tvqvae_tpu_torch.train.stage1 import (
     Stage1TrainState,
@@ -315,31 +329,65 @@ def _replicate(*parts) -> None:
             replicate_(part)
 
 
-def _feed(arrays, batch_size: int, max_steps: int, seed: int, dev, start_step: int = 0,
-          on_device: bool = True) -> Callable:
-    """-> ``batch(step)``: the step's batch of each array of ``arrays`` (None
-    passing through) on ``dev``, in ``make_batches(shuffle=True, seed=seed,
-    repeat=True)``'s global order. One process with ``on_device`` uploads
-    the arrays once and gathers every batch on the device
-    (``_batch_order``), as does every rank of a grid with one data index.
-    Otherwise, or when the batch is split over more than one rank (as in
-    JAX), per-step host batches from step ``start_step`` + 1 on, each rank
-    its data index's slice of every global batch, reach ``dev`` through
-    ``prefetch_batches``: the same batches."""
-    N = len(arrays[0])
-    if on_device and data_count() == 1:
-        order = _batch_order(N, batch_size, max_steps, seed, dev)
-        on_dev = [None if a is None else torch.from_numpy(a).to(dev) for a in arrays]
-        return lambda step: tuple(None if a is None else a[order[step - 1]] for a in on_dev)
-    if N < batch_size:
-        raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
-    order = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed, repeat=True,
-                         process_index=data_index(), process_count=data_count())
-    for _ in range(start_step):
-        next(order)
-    batches = prefetch_batches((tuple(None if a is None else a[idx] for a in arrays)
-                                for idx, _ in order), dev)
-    return lambda step: next(batches)
+class _Feed:
+    """A stage's batches, each step's read through device state, so that a
+    CUDA graph of the step reads the next batch at each replay
+    (``train/multistep.py``): ``next()`` returns the step's batch of each
+    array of ``arrays`` (None passing through) on ``dev``, in
+    ``make_batches(shuffle=True, seed=seed, repeat=True)``'s global order,
+    from step ``start_step`` + 1 on; ``prepare(k)`` comes before every ``k``
+    steps (a bundle, or a single step).
+
+    One process with ``on_device`` uploads the arrays (numpy arrays, or
+    tensors) once and gathers every batch on the device by a device step
+    counter into the step order (``_batch_order``), as does every rank of a
+    grid with one data index. Otherwise, or when the batch is split over
+    more than one rank (as in JAX), per-step host batches, each rank its
+    data index's slice of every global batch, reach ``dev`` through
+    ``prefetch_batches``, and ``prepare(k)`` stages the next ``k`` into a
+    static buffer of ``bundle`` batches on the device (JAX's ``_stacked``),
+    which the steps read in turn: the same batches."""
+
+    def __init__(self, arrays, batch_size: int, max_steps: int, seed: int, dev,
+                 start_step: int = 0, on_device: bool = True, bundle: int = 1):
+        N = len(arrays[0])
+        self.bundle, self.host = bundle, None
+        if on_device and data_count() == 1:
+            self.order = _batch_order(N, batch_size, max_steps, seed, dev)
+            self.arrays = [None if a is None else torch.as_tensor(a).to(dev) for a in arrays]
+            self.t = torch.full((1,), start_step, dtype=torch.int64, device=dev)
+            return
+        if N < batch_size:
+            raise ValueError(f"{N} training series, fewer than one batch of {batch_size}")
+        order = make_batches(np.arange(N), None, batch_size, shuffle=True, seed=seed,
+                             repeat=True, process_index=data_index(),
+                             process_count=data_count())
+        for _ in range(start_step):
+            next(order)
+        self.host = prefetch_batches((tuple(None if a is None else a[idx] for a in arrays)
+                                      for idx, _ in order), dev, size=max(2, bundle))
+        self.buffers, self.j = None, torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def prepare(self, k: int) -> None:
+        if self.host is None:
+            return
+        got = [next(self.host) for _ in range(k)]
+        if self.buffers is None:
+            self.buffers = [None if t is None else t.new_empty((self.bundle, *t.shape))
+                            for t in got[0]]
+        for i, buf in enumerate(self.buffers):
+            if buf is not None:
+                torch.stack([g[i] for g in got], out=buf[:k])
+        self.j.zero_()
+
+    def next(self) -> tuple:
+        if self.host is None:
+            idx = self.order.index_select(0, self.t)[0]
+            self.t += 1
+            return tuple(None if a is None else a.index_select(0, idx) for a in self.arrays)
+        batch = tuple(None if b is None else b.index_select(0, self.j)[0] for b in self.buffers)
+        self.j += 1
+        return batch
 
 
 def _adamw(cfg: Config, max_steps: int, bf16_mu: bool = False, bf16_nu: bool = False) -> Callable:
@@ -354,14 +402,21 @@ def _adamw(cfg: Config, max_steps: int, bf16_mu: bool = False, bf16_nu: bool = F
 
 
 def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval: int,
-          log_interval: int = 100, start_step: int = 0, snapshot=None):
-    """Call ``train_once(step)`` for steps ``start_step`` + 1..``max_steps``;
-    log every ``log_interval`` steps and validate and print every
-    ``val_interval`` and at the end, and there call ``snapshot(step)`` but at
-    the end (the stage checkpoint supersedes it).
-    ``logger.log_metrics(metrics, step)`` gets the train metrics as 0-dim
-    device tensors (reading one waits for the device) and the validation
-    metrics as floats.
+          log_interval: int = 100, start_step: int = 0, snapshot=None, stride: int = 1,
+          train_tail=None):
+    """Train steps ``start_step`` + 1..``max_steps``: ``train_once(step)``
+    takes ``stride`` steps (a bundle, ``train/multistep.py``) ending at
+    ``step``, which stays in true steps, and returns their metrics' means; a
+    remainder that does not fill a bundle runs through ``train_tail(step)``,
+    one step each, so the loop ends at ``max_steps`` exactly (a resume with
+    fewer than a bundle left included); without ``train_tail`` the
+    remainder is trimmed, with a notice. Log where a bundle crosses a
+    multiple of ``log_interval``, validate and print where it crosses one of
+    ``val_interval``, and both at the end; at each validation but the last
+    call ``snapshot(step)`` (the stage checkpoint supersedes it). JAX's
+    ``_loop``. ``logger.log_metrics(metrics, step)`` gets the train metrics
+    as 0-dim device tensors (reading one waits for the device) and the
+    validation metrics as floats.
 
     Inside a process group every rank runs the loop: the train metrics are
     averaged over the ranks where they are logged or printed (at the same
@@ -370,11 +425,17 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
     t0 = time.time()
     last = {"step": start_step, "t": t0}  # segment-rate anchor
     logger = logger if is_primary() else None
-    for step in range(start_step + 1, max_steps + 1):
-        metrics = train_once(step)
-        timer.tick()
-        at_log = step % log_interval == 0 or step == max_steps
-        at_val = step % max(val_interval, 1) == 0 or step == max_steps
+    tail = (max_steps - start_step) % stride if stride > 1 else 0
+    if tail and train_tail is None:
+        _say(f"[{name}] bundle stride {stride} trims max_steps to {max_steps - tail} "
+             f"(from {max_steps})")
+        max_steps -= tail
+        tail = 0
+
+    def emit(step, metrics, width):
+        timer.tick(width)
+        at_log = step % log_interval < width or step == max_steps
+        at_val = step % max(val_interval, 1) < width or step == max_steps
         if at_log or at_val:
             metrics = all_reduce_metrics(metrics)
         if logger and at_log:
@@ -389,16 +450,55 @@ def _loop(name: str, max_steps: int, train_once, eval_once, logger, val_interval
             last["step"], last["t"] = step, now
             line = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
             _say(f"[{name}] step {step}/{max_steps} "
-                  f"({rate:.1f} it/s cum, {seg:.1f} seg) {line}")
+                 f"({rate:.1f} it/s cum, {seg:.1f} seg) {line}")
             if logger and val:
                 logger.log_metrics({f"val/{k}": v for k, v in val.items()}, step)
             if snapshot is not None and step < max_steps:
                 snapshot(step)
 
+    for step in range(start_step + stride, max_steps - tail + 1, stride):
+        emit(step, train_once(step), stride)
+    for step in range(max_steps - tail + 1, max_steps + 1):
+        emit(step, train_tail(step), 1)
+
+
+def _bundle(name: str, bundle_steps: int) -> int:
+    """The steps a stage's bundles take: ``bundle_steps``, or 1 inside a
+    process group (a one-rank one too), whose collectives a CUDA graph
+    cannot capture; JAX keeps per-step dispatch with more than one process
+    as well."""
+    if bundle_steps < 1:
+        raise ValueError(f"bundle_steps must be at least 1, got {bundle_steps}")
+    if bundle_steps > 1 and initialized():
+        _say(f"[{name}] inside a process group: one step a dispatch, not bundles of "
+             f"{bundle_steps}")
+        return 1
+    return bundle_steps
+
+
+def _bundled(name: str, bundle: int, step, state, generator, max_steps: int, feed=None,
+             ready=None):
+    """-> (``train_once``, the other ``_loop`` arguments) of a stage trained
+    in bundles of ``bundle`` steps of ``step`` (``train/multistep.py``,
+    whose ``prepare`` is ``feed``'s); with ``bundle`` 1 each step is an
+    eager step."""
+    ms = Multistep(step, state, generator, max_steps,
+                   prepare=feed.prepare if feed is not None else None, ready=ready)
+    if bundle == 1:
+        return (lambda step: ms.single()), {}
+
+    def train_once(step):
+        captured = ms.graph is not None
+        metrics = ms.bundle(bundle)
+        if not captured and ms.graph is not None:
+            _say(f"[{name}] step captured as one CUDA graph in {ms.capture_s:.2f}s; "
+                 f"bundles of {bundle} steps replay it")
+        return metrics
+
+    return train_once, dict(stride=bundle, train_tail=lambda step: ms.single())
+
 
 REFUSED = {
-    "bundle_steps": "in eager PyTorch a bundle of steps is a Python loop of the same steps; "
-                    "bundles return only as a CUDA-graphed step",
     "rng_impl": "torch has no counterpart to XLA's counter-based RNG implementations",
 }
 
@@ -514,11 +614,11 @@ def train_stage1(
     writes the checkpoint and snapshots (holding every slice's generator),
     and validation spreads its batches over the data index. With ``tp`` > 1
     the ranks train as a (W / tp, tp) grid (module docstring).
-    Step bundles (``bundle_steps`` > 1: in eager PyTorch a bundle is a loop
-    of the same steps, and would return as a CUDA-graphed step) and XLA's
-    RNG implementations (``rng_impl``: torch has no counterpart) raise
-    ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1, rng_impl=rng_impl is not None)
+    ``bundle_steps`` > 1 trains in bundles of that many steps (module
+    docstring), on the device gather and on the host feed, whose bundle's
+    batches are staged on the device together. XLA's RNG implementations
+    (``rng_impl``: torch has no counterpart) raise ``NotImplementedError``."""
+    _unported(rng_impl=rng_impl is not None)
     grid = _train_grid(tp)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
@@ -539,22 +639,27 @@ def train_stage1(
         gen = _rank_generator(seed + 1, dev)
         start_step = _resume(save_path, resume, state, gen, "stage1")
         shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
-        step_fn = make_stage1_train_step()
+        step_fn = make_stage1_train_step(in_place=True)
         t_up = time.time()
-        batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step,
-                      data_on_device)
+        bundle = _bundle("stage1", bundle_steps)
+        feed = _Feed((data.X_train,), batch_size, max_steps, seed, dev, start_step,
+                     data_on_device, bundle)
         if data_on_device and data_count() == 1:
             _say(f"[stage1] train split -> {dev}: {data.X_train.nbytes / 1e6:.0f} MB in "
                  f"{time.time() - t_up:.1f}s")
-
-        def train_once(step):
-            return step_fn(state, batch(step)[0], gen)[1]
+        # k-means init latches on the first step: a graph is captured after it
+        latched = spec.vq_l.kmeans_init or spec.vq_h.kmeans_init
+        train_once, bundled = _bundled(
+            "stage1", bundle, lambda: step_fn(state, feed.next()[0], gen)[1], state, gen,
+            max_steps, feed,
+            ready=(lambda: bool(state.vq_l.initted) and bool(state.vq_h.initted)) if latched
+            else None)
 
         eval_once = _make_eval(state, data.X_test, batch_size, dev) if len(data.X_test) else None
         t_loop = time.time()
         _loop("stage1", max_steps, train_once, eval_once, logger,
               cfg.trainer_params.val_check_interval.get("stage1", 5000), log_interval,
-              start_step, _snapshotter(save_path, state, gen))
+              start_step, _snapshotter(save_path, state, gen), **bundled)
         _say(f"[stage1] loop {time.time() - t_loop:.1f}s")
         unshard_train_state_tp(state)
     if save_path:
@@ -610,9 +715,10 @@ def train_stage2(
     gradients and the logged metrics are the global batch's. With ``tp`` > 1
     the ranks train as a (W / tp, tp) grid (module docstring): the priors'
     big parameters split over the model group, ``frozen`` whole on every
-    rank, each validation sampling from the priors gathered whole. The step
-    bundles (``bundle_steps`` > 1) raise ``NotImplementedError``."""
-    _unported(bundle_steps=bundle_steps > 1)
+    rank, each validation sampling from the priors gathered whole.
+    ``bundle_steps`` > 1 trains the token path in bundles (module
+    docstring); the on-the-fly path takes one step a dispatch, as in
+    JAX."""
     grid = _train_grid(tp)
     dev = resolve_device(device)
     if frozen.vq_l.embed.device.type != dev.type:
@@ -631,26 +737,24 @@ def train_stage2(
         start_step = _resume(save_path, resume, state, gen, "stage2")
         shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
         if precompute and data_count() == 1:
-            order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
-            y_dev = torch.from_numpy(data.y_train).to(dev)
             t0 = time.time()
             tok_l, tok_h = precompute_token_dataset(frozen,
                                                     torch.from_numpy(data.X_train).to(dev),
                                                     batch_size=max(batch_size, 64))
             _say(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
-            tok_l, tok_h = torch.from_numpy(tok_l).to(dev), torch.from_numpy(tok_h).to(dev)
-
-            def train_once(step):
-                idx = order[step - 1]
-                return stage2_train_step_tokens(state, tok_l[idx], tok_h[idx], y_dev[idx],
-                                                gen)[1]
-        else:
+            feed = _Feed((tok_l, tok_h, data.y_train), batch_size, max_steps, seed, dev,
+                         start_step)
+            train_once, bundled = _bundled(
+                "stage2", _bundle("stage2", bundle_steps),
+                lambda: stage2_train_step_tokens(state, *feed.next(), gen)[1],
+                state, gen, max_steps)
+        else:  # per-step dispatch, as in JAX
             step_fn = make_stage2_train_step(frozen)
-            batch = _feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev,
-                          start_step)
-
-            def train_once(step):
-                return step_fn(state, *batch(step), gen)[1]
+            feed = _Feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev,
+                         start_step)
+            train_once, bundled = _bundled("stage2", 1,
+                                           lambda: step_fn(state, *feed.next(), gen)[1],
+                                           state, gen, max_steps, feed)
 
         eval_once = None
         if metrics is not None:
@@ -666,7 +770,7 @@ def train_stage2(
 
         _loop("stage2", max_steps, train_once, eval_once, logger,
               cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
-              start_step, _snapshotter(save_path, state, gen))
+              start_step, _snapshotter(save_path, state, gen), **bundled)
         unshard_train_state_tp(state)
     if save_path:
         params, h_stats = prior_to_jax(state.t_l, state.t_h)
@@ -728,14 +832,13 @@ def train_stage3(
     batch's (the enhancer's GroupNorms are per series). With ``tp`` > 1 the
     ranks train as a (W / tp, tp) grid (module docstring): the enhancer's
     big parameters split over the model group, ``frozen`` whole on every
-    rank, each validation enhancing with the enhancer gathered whole. The
-    step bundles (``bundle_steps`` > 1) raise ``NotImplementedError``. So
-    does
-    ``percept_loss_weight`` > 0: the JAX runner hands its steps no
-    ``percept_fn`` and so trains such a config without the term; the port
-    refuses it rather than do the same (``train/stage3.py`` takes the
-    term)."""
-    _unported(bundle_steps=bundle_steps > 1)
+    rank, each validation enhancing with the enhancer gathered whole.
+    ``bundle_steps`` > 1 trains the precomputed-x' path in bundles (module
+    docstring); tau > 0 and the on-the-fly path take one step a dispatch,
+    as in JAX. ``percept_loss_weight`` > 0 raises ``NotImplementedError``:
+    the JAX runner hands its steps no ``percept_fn`` and so trains such a
+    config without the term; the port refuses it rather than do the same
+    (``train/stage3.py`` takes the term)."""
     grid = _train_grid(tp)
     if cfg.fidelity_enhancer.percept_loss_weight > 0.0:
         raise NotImplementedError(
@@ -762,22 +865,21 @@ def train_stage3(
         shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
         if precompute:
             step_fn = make_stage3_train_step_pre()
-            order = _batch_order(len(data.X_train), batch_size, max_steps, seed, dev)
             X_dev = torch.from_numpy(data.X_train).to(dev)
             t0 = time.time()
             xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
                                                keep_on_device=True)
             _say(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
-
-            def train_once(step):
-                idx = order[step - 1]
-                return step_fn(state, X_dev[idx], xprime[idx], gen)[1]
-        else:
+            feed = _Feed((X_dev, xprime), batch_size, max_steps, seed, dev, start_step)
+            train_once, bundled = _bundled("stage3", _bundle("stage3", bundle_steps),
+                                           lambda: step_fn(state, *feed.next(), gen)[1],
+                                           state, gen, max_steps)
+        else:  # per-step dispatch, as in JAX
             step_fn = make_stage3_train_step(frozen, tau)
-            batch = _feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
-
-            def train_once(step):
-                return step_fn(state, batch(step)[0], gen)[1]
+            feed = _Feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
+            train_once, bundled = _bundled("stage3", 1,
+                                           lambda: step_fn(state, feed.next()[0], gen)[1],
+                                           state, gen, max_steps, feed)
 
         eval_once = None
         if metrics is not None and stage2_ckpt is not None:
@@ -795,7 +897,7 @@ def train_stage3(
 
         _loop("stage3", max_steps, train_once, eval_once, logger,
               cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,
-              start_step, _snapshotter(save_path, state, gen))
+              start_step, _snapshotter(save_path, state, gen), **bundled)
         unshard_train_state_tp(state)
     if save_path:
         _save_stage("stage3", save_path, {"params": fe_to_jax(state.fe),
@@ -855,10 +957,11 @@ def train_fcn(
     _replicate(fcn)
     optimizer, scheduler = adamw(fcn.parameters(), cosine_decay_schedule(lr, max_steps),
                                  weight_decay=weight_decay)
-    batch = _feed((data.X_train, data.y_train), bs, max_steps, seed, dev)
+    feed = _Feed((data.X_train, data.y_train), bs, max_steps, seed, dev)
     logger = logger if is_primary() else None
     for step in range(1, max_steps + 1):
-        ce, acc = fcn_train_step(fcn, optimizer, scheduler, *batch(step))
+        feed.prepare(1)
+        ce, acc = fcn_train_step(fcn, optimizer, scheduler, *feed.next())
         at_log, at_print = step % log_interval == 0, step % 200 == 0 or step == max_steps
         if at_log or at_print:
             m = all_reduce_metrics({"ce": ce, "acc": acc})

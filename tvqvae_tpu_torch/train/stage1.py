@@ -18,6 +18,7 @@ and optimizer, which the step updates in place. Metrics stay on the device
 as 0-dim tensors: reading one waits for the device.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -49,9 +50,18 @@ def create_stage1_state(model: Stage1Model, vq_l: CodebookState, vq_h: CodebookS
 Metrics = Dict[str, torch.Tensor]
 
 
-def make_stage1_train_step() -> Callable:
+def copy_codebook_(dst: CodebookState, src: CodebookState) -> None:
+    """Copy ``src``'s tensors into ``dst``'s."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+def make_stage1_train_step(in_place: bool = False) -> Callable:
     """Returns step(state, x, generator=None) -> (state, metrics); ``generator``
-    draws the dropout masks (on the model's device)."""
+    draws the dropout masks (on the model's device). The step binds the
+    state's codebooks to the new ones, or with ``in_place`` copies the new
+    ones into the state's tensors, which a CUDA graph of the step needs
+    (``train/multistep.py``)."""
 
     def step(state: Stage1TrainState, x: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Tuple[Stage1TrainState, Metrics]:
@@ -62,7 +72,11 @@ def make_stage1_train_step() -> Callable:
         all_reduce_grads(state.model.parameters())
         state.optimizer.step()
         state.scheduler.step()
-        state.vq_l, state.vq_h = out.vq_l.state, out.vq_h.state
+        if in_place:
+            copy_codebook_(state.vq_l, out.vq_l.state)
+            copy_codebook_(state.vq_h, out.vq_h.state)
+        else:
+            state.vq_l, state.vq_h = out.vq_l.state, out.vq_h.state
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

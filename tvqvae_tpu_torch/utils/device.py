@@ -20,3 +20,8 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False without CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()

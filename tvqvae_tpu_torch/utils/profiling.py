@@ -53,11 +53,12 @@ class StepTimer:
         self._times = []
         self._last: Optional[float] = None
 
-    def tick(self) -> None:
-        """Record elapsed time since the last tick."""
+    def tick(self, n_steps: int = 1) -> None:
+        """Record elapsed time since the last tick; ``n_steps`` > 1 divides it
+        so bundled loops still report per-step times."""
         now = time.perf_counter()
         if self._last is not None:
-            self._times.append(now - self._last)
+            self._times.append((now - self._last) / max(n_steps, 1))
             if len(self._times) > self.window:
                 self._times.pop(0)
         self._last = now
