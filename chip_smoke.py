@@ -4225,6 +4225,304 @@ def check_stage1_pair(torch, label, ref, got, cancelled, flip_share, bound, vq_e
     return worst
 
 
+PAR_KM_STEPS, PAR_KM_THRESHOLD = 3, 20  # (h): steps, and a threshold that expires LF codes
+PAR_I_SERIES, PAR_I_STEPS, PAR_I_VAL = 40, 2, 32  # (i): the sweeps' series, steps, validation
+
+
+def par_km_cfg(cfg_dict):
+    """(h)'s config: ``cfg_dict`` with k-means init and dead-code expiry on
+    both codebooks (off when published), a global batch of PAR_B1."""
+    from tvqvae_tpu_torch.config import Config
+
+    vq = {**cfg_dict.get("VQ-VAE", {}), "kmeans_init": True,
+          "threshold_ema_dead_code": PAR_KM_THRESHOLD}
+    return Config.from_dict({**cfg_dict, "VQ-VAE": vq,
+                             "dataset": {"batch_sizes": {"stage1": PAR_B1}}})
+
+
+class KMRecorder:
+    """Inside: ``models/vq.py``'s k-means (its (means, bins) per codebook and
+    its ms by CUDA events on the card), the rows the k-means init and the
+    dead-code expiry drew (global indices, rows) and each quantizer call of
+    the steps (rows, Σ|x| per column, codes expired), recorded."""
+
+    def __init__(self, torch, on_card):
+        self.torch, self.on_card = torch, on_card
+        self.kmeans, self.kmeans_ms, self.draws, self.vq_in, self.expired = [], [], [], [], 0
+
+    def __enter__(self):
+        from tvqvae_tpu_torch.models import stage1 as s1_module
+        from tvqvae_tpu_torch.models import vq as vq_module
+
+        torch, self.mods = self.torch, (vq_module, s1_module)
+        self.real = (vq_module.kmeans, vq_module._global_rows, s1_module.vq_forward)
+        real_kmeans, real_rows, real_vq = self.real
+
+        def kmeans(samples, *a, **kw):
+            if self.on_card:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            means, bins = real_kmeans(samples, *a, **kw)
+            if self.on_card:
+                ev[1].record()
+                torch.cuda.synchronize()
+                self.kmeans_ms.append(ev[0].elapsed_time(ev[1]))
+            self.kmeans.append((means.cpu(), bins.cpu()))
+            return means, bins
+
+        def rows(flat, idx):
+            got = real_rows(flat, idx)
+            self.draws.append((idx.cpu(), got.cpu()))
+            return got
+
+        def vq(state, x, p, **kw):
+            out = real_vq(state, x, p, **kw)
+            if kw.get("train"):
+                flat = x.detach().reshape(-1, x.shape[-1]).double()
+                self.vq_in.append((flat.shape[0], flat.abs().sum(0).cpu()))
+                self.expired += int((out.state.cluster_size < p.threshold_ema_dead_code).sum())
+            return out
+
+        vq_module.kmeans, vq_module._global_rows, s1_module.vq_forward = kmeans, rows, vq
+        return self
+
+    def __exit__(self, *exc):
+        vq_module, s1_module = self.mods
+        vq_module.kmeans, vq_module._global_rows, s1_module.vq_forward = self.real
+
+
+def par_kmeans(torch, cfg_dict, length, device) -> dict:
+    """(h): ``train_stage1`` of ``par_km_cfg`` for PAR_KM_STEPS steps at a
+    global batch of PAR_B1 on seeded series, with SGD (``par_sgd``: Adam's
+    first step is a sign step), in PyTorch's native kernels and
+    deterministic algorithms (as (a)) -> the ``KMRecorder``'s records, the
+    codebooks after the steps, the draw generator's state, the VQ launches
+    (the card's counter)."""
+    from tvqvae_tpu_torch.data.dataset import DatasetSplits
+    from tvqvae_tpu_torch.ops import vq_kernel
+    from tvqvae_tpu_torch.train import runner
+
+    X = np.random.default_rng(23).normal(size=(PAR_B1, C, length)).astype(np.float32)
+    data = DatasetSplits(X_train=X, y_train=np.zeros((len(X), 1), np.int64), X_test=X[:0],
+                         y_test=np.zeros((0, 1), np.int64), scaler=None, n_classes=N_CLASSES)
+    real_tx = runner._adamw
+    runner._adamw = lambda cfg, *a: par_sgd(cfg)
+    vq_kernel.launch_count = 0
+    try:
+        with KMRecorder(torch, device == "cuda") as rec, \
+                torch.backends.cudnn.flags(enabled=False), deterministic_algorithms(torch):
+            state = runner.train_stage1(par_km_cfg(cfg_dict), data, max_steps=PAR_KM_STEPS,
+                                        seed=4, device=device)
+    finally:
+        runner._adamw = real_tx
+    return {"kmeans": rec.kmeans, "kmeans_ms": rec.kmeans_ms, "draws": rec.draws,
+            "vq_in": rec.vq_in, "expired": rec.expired, "draw_state": state.draws.get_state(),
+            "codebooks": {band: {f: getattr(cb, f).cpu() for f in ("embed", "embed_avg",
+                                                                  "cluster_size", "initted")}
+                          for band, cb in (("vq_l", state.vq_l), ("vq_h", state.vq_h))},
+            "launches": vq_kernel.launch_count}
+
+
+def check_kmeans(torch, label, ref, got, eps) -> dict:
+    """Hold (h)'s run ``got`` to one process's ``ref`` (``par_kmeans``'s):
+    the rows drawn (the same global indices, their values within 1e-4 +
+    1e-4 relative), the k-means ``bins`` (counts) equal and its means within
+    (n-1)·2⁻²⁴·Σ|x| of its samples, per column; after the steps
+    ``cluster_size`` equal, ``embed_avg`` within that bound plus the steps'
+    (Σ over the steps' quantizer inputs) plus 2⁻²² relative, ``embed``
+    within it over the smoothed counts plus 2⁻²¹ relative where its code did
+    not expire, and the draw generator in one state. -> the worst shares of
+    the bounds."""
+    worst = {"kmeans means": 0.0, "embed_avg": 0.0, "embed": 0.0, "drawn rows": 0.0}
+    check(torch.equal(got["draw_state"], ref["draw_state"]),
+          f"{label}: the draw generator's state differs")
+    check(len(got["draws"]) == len(ref["draws"]) == 2 + 2 * PAR_KM_STEPS,
+          f"{label}: {len(got['draws'])} row draws, not {2 + 2 * PAR_KM_STEPS}")
+    for (idx, rows), (r_idx, r_rows) in zip(got["draws"], ref["draws"]):
+        check(torch.equal(idx, r_idx), f"{label}: the drawn rows' indices differ")
+        e = (rows.double() - r_rows.double()).abs() / (1e-4 + 1e-4 * r_rows.double().abs())
+        worst["drawn rows"] = max(worst["drawn rows"], float(e.max()))
+    check(worst["drawn rows"] <= 1.0, f"{label}: drawn rows off by {worst['drawn rows']} of bound")
+    bounds = {}
+    for b, band in enumerate(("vq_l", "vq_h")):
+        (means, bins), (r_means, r_bins) = got["kmeans"][b], ref["kmeans"][b]
+        check(torch.equal(bins, r_bins), f"{label}: {band} k-means bins (counts) differ")
+        n, s = ref["vq_in"][b]  # step 1's quantizer input: the k-means samples
+        km = (n - 1) * 2.0 ** -24 * s
+        e = (means.double() - r_means.double()).abs() / km[None, :]
+        worst["kmeans means"] = max(worst["kmeans means"], float(e.max()))
+        bounds[band] = km + sum((n_ - 1) * 2.0 ** -24 * s_ for n_, s_ in ref["vq_in"][b::2])
+    check(worst["kmeans means"] <= 1.0, f"{label}: k-means means beyond their sum bound")
+    for band, cb in got["codebooks"].items():
+        r = ref["codebooks"][band]
+        check(torch.equal(cb["cluster_size"], r["cluster_size"]),
+              f"{label}: {band} cluster_size (the counts) differs")
+        check(bool(cb["initted"]) and bool(r["initted"]), f"{label}: {band} not initialised")
+        avg = r["embed_avg"].double()
+        b_avg = bounds[band][None, :] + 2.0 ** -22 * avg.abs()
+        e = (cb["embed_avg"].double() - avg).abs() / b_avg
+        worst["embed_avg"] = max(worst["embed_avg"], float(e.max()))
+        cs = r["cluster_size"].double()
+        smoothed = (cs + eps) / (cs.sum() + cs.numel() * eps) * cs.sum()
+        live = cs >= PAR_KM_THRESHOLD  # an expired code holds a drawn row
+        emb = r["embed"].double()
+        e = ((cb["embed"].double() - emb).abs()
+             / (b_avg / smoothed[:, None] + 2.0 ** -21 * emb.abs()))[live]
+        worst["embed"] = max(worst["embed"], float(e.max()) if e.numel() else 0.0)
+    check(worst["embed_avg"] <= 1.0 and worst["embed"] <= 1.0,
+          f"{label}: codebooks beyond their sum bounds {worst}")
+    return worst
+
+
+class ValRecorder:
+    """What ``runner._running_metrics`` reads of an ``evaluation.Metrics``:
+    it records the series each validation scores instead of scoring them."""
+
+    z_test = X_test = None
+
+    def __init__(self):
+        self.seen = []
+
+    def z_gen_fn(self, x):
+        self.seen.append(np.array(x))
+
+    def fid_score(self, *a, **kw):
+        return 0.0
+
+    def stat_metrics(self, *a):
+        return 0.0, 0.0, 0.0, 0.0
+
+
+@contextlib.contextmanager
+def recorded_tokens(out):
+    """The token grids the samplers of ``train/stage2.py`` decode, appended
+    to ``out`` (LF then HF of each batch) on the host."""
+    from tvqvae_tpu_torch.train import stage2 as st2
+
+    real = st2.decode_tokens
+
+    def recording(frozen, s, band, *a, **kw):
+        out.append(s.cpu())
+        return real(frozen, s, band, *a, **kw)
+
+    st2.decode_tokens = recording
+    try:
+        yield out
+    finally:
+        st2.decode_tokens = real
+
+
+def par_i_data(length):
+    """(i)'s seeded splits: PAR_I_SERIES train series, 4 test."""
+    from tvqvae_tpu_torch.data.dataset import DatasetSplits
+
+    rng = np.random.default_rng(24)
+    X = rng.normal(size=(PAR_I_SERIES + 4, C, length)).astype(np.float32)
+    y = rng.integers(0, N_CLASSES, size=(len(X), 1)).astype(np.int64)
+    return DatasetSplits(X_train=X[:PAR_I_SERIES], y_train=y[:PAR_I_SERIES],
+                         X_test=X[PAR_I_SERIES:], y_test=y[PAR_I_SERIES:], scaler=None,
+                         n_classes=N_CLASSES)
+
+
+def par_i_cfg(cfg_dict):
+    """(i)'s config: ``cfg_dict`` at the published batches, validating at
+    the last step only."""
+    from tvqvae_tpu_torch.config import Config
+
+    return Config.from_dict({**cfg_dict, "dataset": {"batch_sizes": {"stage2": PAR_B2,
+                                                                      "stage3": PAR_B2}},
+                             "evaluation": {"batch_size": PAR_I_VAL},
+                             "trainer_params": {"val_check_interval": {"stage2": 10 ** 6,
+                                                                       "stage3": 10 ** 6}}})
+
+
+def par_sweeps(torch, frozen, X, data_parallel) -> dict:
+    """The token sweep (batches of 64) and the x' sweep (batches of 32) over
+    ``X`` on the card, each timed -> {"tokens", "xprime" on the host,
+    "seconds": (token, x')}."""
+    from tvqvae_tpu_torch.train import stage2 as st2, stage3 as st3
+
+    sync = torch.cuda.synchronize if X.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    tokens = st2.precompute_token_dataset(frozen, X, 64, data_parallel=data_parallel)
+    sync()
+    t1 = time.perf_counter()
+    xprime = st3.precompute_xprime_dataset(frozen, X, 32, keep_on_device=True,
+                                           data_parallel=data_parallel)
+    sync()
+    return {"tokens": tokens, "xprime": xprime.cpu(),
+            "seconds": (t1 - t0, time.perf_counter() - t1)}
+
+
+def par_fanout(torch, cfg_dict, length, frozen, device, out_dir) -> dict:
+    """(i) in a rank of the two: both sweeps spread over the ranks; then
+    ``train_stage2`` and ``train_stage3`` (tau 0) for PAR_I_STEPS steps over
+    ``frozen``, precomputing over the ranks (they share one host) and
+    validating at the end, PAR_I_VAL series decoded (and enhanced) over the
+    ranks, the primary alone holding the metrics -> the sweeps, each
+    validation's series and tokens (this rank's rows), the final priors and
+    enhancer on the host."""
+    from tvqvae_tpu_torch.parallel import mesh
+    from tvqvae_tpu_torch.train import runner
+
+    data, cfg = par_i_data(length), par_i_cfg(cfg_dict)
+    out = {"sweeps": par_sweeps(torch, frozen, torch.from_numpy(data.X_train).to(device), True)}
+    stage2_path = os.path.join(out_dir, "i", "stage2")
+    for stage in (2, 3):
+        metrics = ValRecorder() if mesh.is_primary() else None
+        tokens = []
+        kw = dict(max_steps=PAR_I_STEPS, seed=5, device=device, metrics=metrics,
+                  val_n_samples=PAR_I_VAL)
+        with recorded_tokens(tokens):
+            if stage == 2:
+                state = runner.train_stage2(cfg, data, frozen, save_path=stage2_path, **kw)
+                sd = {b: {k: v.cpu() for k, v in t.state_dict().items()}
+                      for b, t in (("l", state.t_l), ("h", state.t_h))}
+            else:
+                state = runner.train_stage3(cfg, data, frozen, stage2_ckpt=stage2_path, **kw)
+                sd = {k: v.cpu() for k, v in state.fe.state_dict().items()}
+        out[stage] = {"val": metrics.seen if metrics is not None else None, "tokens": tokens,
+                      "state": sd}
+    return out
+
+
+def par_fanout_one(torch, cfg_dict, length, frozen, device, ranks_out, stage2_path) -> dict:
+    """(i) in this process: the validation of each of the ranks' final
+    states, one process sampling (and enhancing) every row -> {stage:
+    (series list, tokens)}."""
+    from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
+    from tvqvae_tpu_torch.models.maskgit import MaskGITSpec, build_transformers
+    from tvqvae_tpu_torch.train import runner
+    from tvqvae_tpu_torch.train import stage2 as st2
+    from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = par_i_cfg(cfg_dict)
+    spec = MaskGITSpec.from_config(cfg, frozen.model.spec)
+    out = {}
+    t_l, t_h = build_transformers(cfg, frozen.model.spec, N_CLASSES)
+    t_l.load_state_dict(ranks_out[2]["state"]["l"])
+    t_h.load_state_dict(ranks_out[2]["state"]["h"])
+    tokens = []
+    with recorded_tokens(tokens):
+        sets = runner._val_samples(cfg, st2.make_sampling_fn(frozen, t_l.to(device).eval(),
+                                                             t_h.to(device).eval(), spec),
+                                   PAR_I_VAL, 10_000 + PAR_I_STEPS, torch.device(device))
+    out[2] = ([x for _, x in sets], tokens)
+    p_l, p_h = st2.priors_from_tree(cfg, frozen.model.spec, N_CLASSES,
+                                    load_checkpoint(stage2_path)[0])
+    fe = FidelityEnhancer.from_config(cfg, length, C)
+    fe.load_state_dict(ranks_out[3]["state"])
+    tokens = []
+    with recorded_tokens(tokens):
+        sets = runner._val_samples(cfg, st2.make_sampling_fn(frozen, p_l.to(device).eval(),
+                                                             p_h.to(device).eval(), spec),
+                                   PAR_I_VAL, 20_000 + PAR_I_STEPS, torch.device(device),
+                                   enhance=fe.to(device).eval())
+    out[3] = ([x for _, x in sets], tokens)
+    return out
+
+
 def par_leaf_sums(final) -> dict:
     """{leaf: (Σ v, Σ |v|) in float64}, to hold two ranks' states equal
     without moving them."""
@@ -4329,6 +4627,17 @@ def parallel_rank_work(torch, dist, rank, world, ports, out_dir, cfg, spec, xs1,
     res["g"], g_state = par_tp(torch, cfg, model0, vq_l0, vq_h0, xs1, device, out_dir)
     res["g_seconds"] = time.perf_counter() - t0
     launches["g"] = vq_kernel.launch_count
+    # (h): k-means init and dead-code expiry over the global batch
+    t0 = time.perf_counter()
+    res["h"] = par_kmeans(torch, cfg_dict, length, device)
+    res["h_seconds"] = time.perf_counter() - t0
+    launches["h"] = res["h"].pop("launches")
+    # (i): the sweeps and the stage-2/3 validations spread over the ranks
+    vq_kernel.launch_count = 0
+    t0 = time.perf_counter()
+    res["i"] = par_fanout(torch, cfg_dict, length, frozen, device, out_dir)
+    res["i_seconds"] = time.perf_counter() - t0
+    launches["i"] = vq_kernel.launch_count
     dist.destroy_process_group()
     del frozen
     if rank == 0:
@@ -4466,7 +4775,7 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
         with deterministic_cudnn(torch):
             ref_b = par_stage2(torch, cfg, frozen, xs2, ys2, noise, slice(None), device)
         parent_launches = vq_kernel.launch_count
-        del frozen, model0
+        del model0
 
         # (d): the serve CLI's service with and without --data_parallel
         parser = serve.build_argparser()
@@ -4499,6 +4808,14 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
         check(host["loss"] == one["loss"] and host["val"] == one["val"],
               "[parallel] (e) one process on the host feed: the logs differ")
 
+        # (h)'s one-process run and (i)'s one-process sweeps, while the ranks run
+        with deterministic_cudnn(torch):
+            ref_h = par_kmeans(torch, cfg_dict, length, device)
+            vq_kernel.launch_count = 0
+            one_sweeps = par_sweeps(torch, frozen, torch.from_numpy(
+                par_i_data(length).X_train).to(device), False)
+            sweep_launches = vq_kernel.launch_count
+
         for proc in procs:
             proc.join(timeout=300)
         for r, proc in enumerate(procs):
@@ -4510,6 +4827,11 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
                 proc.join()
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
              for r in range(PAR_WORLD)]
+    # (i): this process's validation of the ranks' final states
+    with deterministic_cudnn(torch):
+        one_val = par_fanout_one(torch, cfg_dict, length, frozen, device, ranks[0]["i"],
+                                 os.path.join(out_dir, "i", "stage2"))
+    del frozen
     shutil.rmtree(out_dir, ignore_errors=True)
 
     # (a): indices, the ranks equal (rank 0 held its state to this process's)
@@ -4609,7 +4931,67 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
     check(device != "cuda" or tp_launches == PAR_WORLD * tp_rank,
           f"[parallel] (g) VQ launches {tp_launches}, expected {PAR_WORLD * tp_rank}")
 
-    launches = (parent_launches + run_launches
+    # (h): the k-means draws, Lloyd counts and codebooks against one process
+    check(ref_h["expired"] > 0, "[parallel] (h) no code expired in one process's run")
+    h_worst = check_kmeans(torch, "[parallel] (h) two ranks against one process", ref_h,
+                           ranks[0]["h"], spec.vq_l.eps)
+    h_ = [rk["h"] for rk in ranks]
+    for band in ("vq_l", "vq_h"):
+        for f, v in h_[0]["codebooks"][band].items():
+            check(torch.equal(v, h_[1]["codebooks"][band][f]),
+                  f"[parallel] (h) the ranks' {band}.{f} differ")
+    for (m0, b0), (m1, b1) in zip(h_[0]["kmeans"], h_[1]["kmeans"]):
+        check(torch.equal(m0, m1) and torch.equal(b0, b1), "[parallel] (h) the ranks' k-means "
+                                                            "differ")
+    check(h_[0]["expired"] == h_[1]["expired"] == ref_h["expired"],
+          f"[parallel] (h) expired codes {[h['expired'] for h in h_]} against "
+          f"{ref_h['expired']}")
+    h_cfg = par_km_cfg(cfg_dict)
+    h_per = 2 * (h_cfg.vqvae.kmeans_iters + 1) + 2 * PAR_KM_STEPS  # a process's launches
+    for rk in ranks:
+        check(device != "cuda" or rk["launches"]["h"] == h_per,
+              f"[parallel] (h) a rank's VQ launches {rk['launches']['h']}, not {h_per}")
+    check(device != "cuda" or ref_h["launches"] == h_per,
+          f"[parallel] (h) one process's VQ launches {ref_h['launches']}, not {h_per}")
+
+    # (i): the sweeps over the ranks against one process's; each runner's
+    # validation over the ranks against this process's of the same state
+    x_scale = float(one_sweeps["xprime"].abs().max())
+    x_gap = 0.0
+    for rk in ranks:
+        sw = rk["i"]["sweeps"]
+        for band in (0, 1):
+            check(np.array_equal(sw["tokens"][band], one_sweeps["tokens"][band]),
+                  f"[parallel] (i) the two-rank token sweep's band {band} differs")
+        x_gap = max(x_gap, float((sw["xprime"] - one_sweeps["xprime"]).abs().max()) / x_scale)
+    check(x_gap <= 2e-4, f"[parallel] (i) the two-rank x' sweep off by {x_gap} of its scale")
+    val_gap = {}
+    for stage in (2, 3):
+        got = ranks[0]["i"][stage]
+        check(ranks[1]["i"][stage]["val"] is None, "[parallel] (i) rank 1 scored a validation")
+        series, tokens = one_val[stage]
+        check(len(got["val"]) == len(series) == stage - 1,
+              f"[parallel] (i) stage {stage}: {len(got['val'])} validation sets")
+        for x, want in zip(got["val"], series):
+            check(x.shape == (PAR_I_VAL, C, length),
+                  f"[parallel] (i) stage {stage} validation shape {x.shape}")
+            gap = float(np.abs(x - want).max() / np.abs(want).max())
+            val_gap[stage] = max(val_gap.get(stage, 0.0), gap)
+        check(val_gap[stage] <= 2e-4,
+              f"[parallel] (i) stage {stage} validation off by {val_gap[stage]} of its scale")
+        for band in (0, 1):
+            two = torch.cat([rk["i"][stage]["tokens"][band] for rk in ranks])
+            check(torch.equal(two, tokens[band]),
+                  f"[parallel] (i) stage {stage} validation: band {band} tokens differ")
+    i_one = 2 + 2 * -(-PAR_I_SERIES // 32)  # the token sweep's one batch, the x' sweep's
+    i_rank = 2 * i_one  # the sweeps, then the runners' own
+    check(device != "cuda" or sweep_launches == i_one,
+          f"[parallel] (i) one process's VQ launches {sweep_launches}, not {i_one}")
+    for rk in ranks:
+        check(device != "cuda" or rk["launches"]["i"] == i_rank,
+              f"[parallel] (i) a rank's VQ launches {rk['launches']['i']}, not {i_rank}")
+
+    launches = (parent_launches + run_launches + ref_h["launches"] + sweep_launches
                 + sum(sum(rk["launches"].values()) for rk in ranks))
     run_rank = (2 * (PAR_RUN_STEPS + PAR_RUN_STEPS // 2)  # straight, then resumed at step 2
                 + 2 * (PAR_RUN_STEPS // 2 + 1) * nb // PAR_WORLD)  # 2 + 1 validations
@@ -4621,7 +5003,9 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
                 + 2 * 2  # (c): the step with no group and the NCCL step
                 + PAR_WORLD * run_rank  # (e): the ranks
                 + 2 * (2 * PAR_RUN_STEPS + 2 * (PAR_RUN_STEPS // 2) * nb)  # (e): one process, twice
-                + PAR_WORLD * 2 * PAR_PROD_STEPS)  # (f)
+                + PAR_WORLD * 2 * PAR_PROD_STEPS  # (f)
+                + (PAR_WORLD + 1) * h_per  # (h): the ranks and one process
+                + PAR_WORLD * i_rank + i_one)  # (i): the ranks, one process's sweeps
     # on the CPU (a rehearsal) the plain twin runs and counts nothing
     check(launches == expected or device != "cuda",
           f"[parallel] VQ launches {launches}, expected {expected}")
@@ -4691,6 +5075,33 @@ def parallel_phase(torch, vq_kernel, work, smi, device="cuda", cfg_dict=None, le
           f"bit-equal to the straight run; against (e)'s one process: bit-equal {tp_bit}, "
           f"leaves within {tp_worst['leaf']:.3g}, losses {tp_loss:.3g} relative; VQ launches "
           f"{tp_launches}", flush=True)
+    hw, ho = ranks[0]["h"]["kmeans_ms"], ref_h["kmeans_ms"]
+    print(f"[parallel] {smi} | (h) train_stage1 with k-means init ({h_cfg.vqvae.kmeans_iters} "
+          f"Lloyd iterations) and dead-code expiry (threshold {PAR_KM_THRESHOLD}) on both "
+          f"codebooks at the published width, {PAR_KM_STEPS} steps of {PAR_B1 // PAR_WORLD} + "
+          f"{PAR_B1 // PAR_WORLD} (SGD, native kernels, deterministic algorithms) against one "
+          f"process at {PAR_B1}: the same {len(ref_h['draws'])} row draws (global indices; rows "
+          f"at most {h_worst['drawn rows']:.3g} of 1e-4 + 1e-4 relative), the draw generator in "
+          f"one state, k-means bins equal and means at most {h_worst['kmeans means']:.3g} of "
+          f"their sum bound, cluster_size equal, embed_avg and live embed at most "
+          f"{max(h_worst['embed_avg'], h_worst['embed']):.3g} of theirs, {ref_h['expired']} "
+          f"code expiries; the ranks' codebooks equal; k-means init ms (LF, HF; CUDA events) "
+          f"rank 0 {[round(v, 2) for v in hw]} against one process {[round(v, 2) for v in ho]}; "
+          f"VQ launches by rank {[rk['launches']['h'] for rk in ranks]} (one process "
+          f"{ref_h['launches']}), {ranks[0]['h_seconds']:.1f} s for (h)", flush=True)
+    tw, to = ranks[0]["i"]["sweeps"]["seconds"], one_sweeps["seconds"]
+    print(f"[parallel] {smi} | (i) the ranks on one host: the token sweep of {PAR_I_SERIES} "
+          f"series (batches of 64) and the x' sweep (batches of 32) over the two ranks against "
+          f"one process: tokens equal, x' within {x_gap:.3g} of its scale; seconds (token, x') "
+          f"two ranks {tuple(round(v, 3) for v in tw)} against one process "
+          f"{tuple(round(v, 3) for v in to)}; train_stage2 and train_stage3 (tau 0) "
+          f"{PAR_I_STEPS} steps of {PAR_B2 // PAR_WORLD} + {PAR_B2 // PAR_WORLD} at the "
+          f"published prior and enhancer widths, precomputed over the ranks; one validation "
+          f"of each, {PAR_I_VAL} series at {PAR_I_VAL // PAR_WORLD} rows a rank, against one "
+          f"process's of the same state: series within {val_gap[2]:.3g} (stage 2) and "
+          f"{val_gap[3]:.3g} (stage 3, raw and enhanced) of their scale, tokens equal; VQ "
+          f"launches by rank {[rk['launches']['i'] for rk in ranks]} (one process "
+          f"{sweep_launches}), {ranks[0]['i_seconds']:.1f} s for (i)", flush=True)
     return launches, tp_launches
 
 

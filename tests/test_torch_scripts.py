@@ -141,20 +141,17 @@ UNPORTED = [
     (train, ["--bundle_steps", "10"]), (train, ["--rbg_rng"]), (train, ["--no_precompute"]),
     (train, ["--host_data"]), (train, ["--tp", "2"]), (serve, ["--data_parallel"]),
 ]
-# the reason each refusal gives; the other flags run since data and tensor parallelism
-# and bundled steps
-REFUSED = {"--rbg_rng": "no counterpart"}
 
 
 @pytest.mark.parametrize("script, flag", UNPORTED,
                          ids=[f"{s.__name__.rsplit('.', 1)[1]}{f[0]}" for s, f in UNPORTED])
 def test_unported_flag_is_refused(script, flag, capsys, monkeypatch):
-    """The JAX flags the port once refused: ``--rbg_rng`` still is, naming
-    its reason; ``--tp 2`` is no longer unported, and one process is refused
-    it as the JAX CLI refuses a device count that ``tp`` does not divide;
-    ``--bundle_steps 10``, ``--no_precompute``, ``--host_data`` and serve's
-    ``--data_parallel`` parse and get past the refusal (to the missing
-    dataset file here; ``tests/test_torch_bundle.py`` and
+    """The JAX flags the port once refused: none is any more. ``--tp 2`` is
+    refused to one process as the JAX CLI refuses a device count that
+    ``tp`` does not divide; ``--bundle_steps 10``, ``--rbg_rng``,
+    ``--no_precompute``, ``--host_data`` and serve's ``--data_parallel``
+    parse and get past the refusal (to the missing dataset file here;
+    ``tests/test_torch_bundle.py``, ``tests/test_torch_rbg_rng.py`` and
     ``tests/test_torch_parallel.py`` run them)."""
     if flag[0] == "--tp":
         with pytest.raises(SystemExit) as exc:
@@ -164,13 +161,6 @@ def test_unported_flag_is_refused(script, flag, capsys, monkeypatch):
         assert "1 devices not divisible by tp=2" in err and "not ported" not in err
         assert script.build_argparser().parse_args(
             ["--dataset_file", "f.npz", *flag]).tp == 2
-        return
-    if flag[0] in REFUSED:
-        with pytest.raises(SystemExit) as exc:
-            script.main(["--dataset_file", "/nonexistent/flights.npz", *flag])
-        assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert "not ported" in err and flag[0] in err and REFUSED[flag[0]] in err
         return
     args = script.build_argparser().parse_args(["--dataset_file", "/nonexistent/f.npz", *flag,
                                                 "--device", "cpu"])

@@ -578,23 +578,30 @@ def test_train_stage1_on_cpu_learns_and_validates(tiny_data):
     {"bf16_nu": True}, {"bf16_head": True}, {"bf16_istft": True}, {"tp": 2}, {"rng_impl": "rbg"},
 ])
 def test_train_stage1_refuses_unported_options(tiny_data, flag):
-    """The RNG implementation raises; step bundles run (a bundle of 4 over
-    2 steps is all tail: ``tests/test_torch_bundle.py`` holds bundles to
-    single steps); tensor parallelism runs where the world divides by
-    ``tp`` (``tests/test_torch_tp.py``) and one process is refused ``tp`` =
-    2 as JAX refuses it; the precision and remat options run, and reach the
-    spec or the optimizer."""
+    """No option is refused any more. The RNG implementation (JAX's rbg for
+    its dropout key) runs and changes nothing: the port's masks come from
+    torch's generator either way (``tests/test_torch_rbg_rng.py``); step
+    bundles run (a bundle of 4 over 2 steps is all tail:
+    ``tests/test_torch_bundle.py`` holds bundles to single steps); tensor
+    parallelism runs where the world divides by ``tp``
+    (``tests/test_torch_tp.py``) and one process is refused ``tp`` = 2 as
+    JAX refuses it; the precision and remat options run, and reach the spec
+    or the optimizer."""
     (name, value), = flag.items()
     if name == "tp":
         with pytest.raises(ValueError, match="1 devices not divisible by tp=2"):
             runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
         return
-    if name == "rng_impl":
-        with pytest.raises(NotImplementedError, match=name):
-            runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
-        return
     state = runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu", **flag)
     assert state.step == 2
+    if name == "rng_impl":
+        base = runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu")
+        for k, v in base.model.state_dict().items():
+            assert torch.equal(v, state.model.state_dict()[k]), k
+        with pytest.raises(ValueError, match="none of JAX's"):
+            runner.train_stage1(_tiny_cfg(), tiny_data, max_steps=2, device="cpu",
+                                rng_impl="philox")
+        return
     if name == "bundle_steps":
         return
     moments = next(iter(state.optimizer.state.values()))

@@ -179,18 +179,23 @@ class Stage1Model(nn.Module):
         train: bool = False,
         svq_temp: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        row_generator: Optional[torch.Generator] = None,
     ) -> Stage1Output:
-        """``generator`` draws the dropout masks and the VQ's random draws."""
+        """``generator`` draws the dropout masks and the SVQ draws,
+        ``row_generator`` the rows of the VQ's k-means init and dead-code
+        expiry (``models/vq.py::vq_forward``)."""
         s = self.spec
         self.train(train)
         xf = time_to_timefreq(x, s.n_fft)
         x_l = interp_linear(timefreq_to_time(zero_pad_high_freq(xf), s.n_fft), s.input_length)
         x_h = interp_linear(timefreq_to_time(zero_pad_low_freq(xf), s.n_fft), s.input_length)
         out_l = vq_forward(vq_state_l, self.encode(x, "lf", generator), s.vq_l,
-                           train=train, svq_temp=svq_temp, generator=generator)
+                           train=train, svq_temp=svq_temp, generator=generator,
+                           row_generator=row_generator)
         xhat_l = self.decode(out_l.quantized, "lf", generator)
         out_h = vq_forward(vq_state_h, self.encode(x, "hf", generator), s.vq_h,
-                           train=train, svq_temp=svq_temp, generator=generator)
+                           train=train, svq_temp=svq_temp, generator=generator,
+                           row_generator=row_generator)
         xhat_h = self.decode(out_h.quantized, "hf", generator)
         return Stage1Output(x_l=x_l, x_h=x_h, xhat_l=xhat_l, xhat_h=xhat_h,
                             vq_l=out_l, vq_h=out_h)

@@ -19,15 +19,23 @@ Port of ``tvqvae_tpu/models/vq.py::vq_forward``:
     the commitment loss is ``mean((q.detach() - x)^2)`` (0 in eval).
   - optional k-means init on the first training batch (the ``initted``
     latch) and dead-code expiry below a cluster-size threshold, both off in
-    the published config. Their random rows are drawn from ``generator``,
-    or given as indices into the batch's rows (``kmeans_idx``,
-    ``dead_code_idx``: JAX's draws, in the parity tests).
+    the published config. Their random rows are drawn from
+    ``row_generator`` (``generator`` where none is given, outside a process
+    group), or given as indices into the global batch's rows
+    (``kmeans_idx``, ``dead_code_idx``: JAX's draws, in the parity tests).
   - inside a process group (``parallel/``) each rank quantizes its own rows
     (the kernel launches on every rank) and train mode sums the kernel's
     ``counts`` and ``embed_sum`` over the ranks before the EMA step, so the
     codebooks advance as one process's would over the global batch; the
     perplexity is the global batch's. k-means init and dead-code expiry
-    are refused there.
+    act on the global batch as JAX's do on its sharded one: the rows are
+    drawn over all ``data_count() * B * N`` of them (rank r holds the
+    contiguous block r, ``parallel/mesh.py::shard_bounds``) from a
+    generator every rank holds in the same state, each rank fills in the
+    rows it holds and one sum over the data group gives every rank the
+    same rows; each Lloyd iteration runs the kernel on the rank's rows and
+    sums its counts and row sums over the group. The ranks' codebooks stay
+    equal, so the ``initted`` latch, one host read, agrees on every rank.
 
 The codebook update runs under ``torch.no_grad`` and stores tensors outside
 the autograd graph, so a step's graph dies with the step.
@@ -39,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 
 from tvqvae_tpu_torch.ops.vq_kernel import nearest_codes_stats
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_, data_count, initialized
+from tvqvae_tpu_torch.parallel.mesh import all_reduce_, data_count, data_index, initialized
 from tvqvae_tpu_torch.utils.device import capturing
 
 
@@ -112,8 +120,36 @@ def gumbel(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
 def _row_draw(idx: Optional[torch.Tensor], K: int, M: int, generator, device) -> torch.Tensor:
     """K row indices into M rows: the given ones, or uniform draws."""
     if idx is None:
+        if generator is None and initialized():
+            raise ValueError("k-means init and dead-code expiry inside a process group draw "
+                             "their rows from row_generator, held in the same state by every "
+                             "rank")
         return torch.randint(0, M, (K,), generator=generator, device=device)
     return idx.to(device=device, dtype=torch.long)
+
+
+def _global_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of the global batch whose slice this rank holds as
+    ``flat`` (its contiguous block of ``data_count()``): each rank fills in
+    the rows it holds, zeros elsewhere, and one sum over the data group
+    gives every rank all of them. ``flat[idx]`` without a process group."""
+    if not initialized():
+        return flat[idx]
+    M = flat.shape[0]
+    local = idx - data_index() * M
+    mine = (local >= 0) & (local < M)
+    rows = torch.where(mine[:, None], flat[local.clamp(0, M - 1)], 0.0)
+    return all_reduce_(rows)
+
+
+def _stats(samples: torch.Tensor, means: torch.Tensor):
+    """The nearest-code pass of a Lloyd iteration over the global batch:
+    (bins, sums) summed over the data group in one collective."""
+    _, bins, sums = nearest_codes_stats(samples, means.contiguous())
+    if not initialized():
+        return bins, sums
+    both = all_reduce_(torch.cat([bins[:, None], sums], 1))
+    return both[:, 0], both[:, 1:]
 
 
 @torch.no_grad()
@@ -122,14 +158,18 @@ def kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int = 10,
            generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-Lloyd k-means on (M, D) samples from ``num_clusters`` random
     rows; empty clusters keep their mean. Returns (means, bins). Each
-    assignment is a nearest-code pass (the VQ kernel on the card)."""
-    M = samples.shape[0]
-    means = samples[_row_draw(init_idx, num_clusters, M, generator, samples.device)]
+    assignment is a nearest-code pass (the VQ kernel on the card). Inside a
+    process group ``samples`` is this rank's slice of the global batch and
+    the k-means is the global batch's (module docstring): ``init_idx`` and
+    the draws index the global rows."""
+    M = samples.shape[0] * data_count()  # the global batch's rows
+    means = _global_rows(samples, _row_draw(init_idx, num_clusters, M, generator,
+                                            samples.device))
     for _ in range(num_iters):
-        _, bins, sums = nearest_codes_stats(samples, means.contiguous())
+        bins, sums = _stats(samples, means)
         new_means = sums / bins.clamp_min(1.0)[:, None]
         means = torch.where((bins == 0)[:, None], means, new_means)
-    _, bins, _ = nearest_codes_stats(samples, means.contiguous())
+    bins, _ = _stats(samples, means)
     return means, bins
 
 
@@ -144,25 +184,27 @@ def vq_forward(
     noise: Optional[torch.Tensor] = None,
     kmeans_idx: Optional[torch.Tensor] = None,
     dead_code_idx: Optional[torch.Tensor] = None,
+    row_generator: Optional[torch.Generator] = None,
 ) -> VQOutput:
     """Quantize (B, N, D) -> VQOutput. In eval mode the codebook is unchanged.
 
     ``noise`` (M, K), when given, replaces the Gumbel draw of the
     ``svq_temp`` branch (M = B*N, K = codebook size); ``kmeans_idx`` and
     ``dead_code_idx`` (K,) replace the row draws of k-means init and
-    dead-code expiry."""
+    dead-code expiry, as indices into the global batch's rows.
+    ``row_generator`` draws those rows; without one they come from
+    ``generator`` in one process, and inside a process group, where every
+    rank must draw the same rows, its absence is an error."""
     B, N, D = x.shape
     K = p.codebook_size
     flat = x.reshape(B * N, D).float().contiguous()
 
-    if train and initialized() and (p.kmeans_init or p.threshold_ema_dead_code > 0):
-        raise NotImplementedError(
-            "k-means init and dead-code expiry inside a process group: their row draws "
-            "would differ between ranks (both are off in the published config)")
+    if row_generator is None and not initialized():
+        row_generator = generator
     # the latch reads a flag on the device: only where k-means init is on, and
     # not inside a CUDA graph capture, which begins once it is set (train/multistep.py)
     if train and p.kmeans_init and not capturing() and not bool(state.initted):
-        means, bins = kmeans(flat.detach(), K, p.kmeans_iters, kmeans_idx, generator)
+        means, bins = kmeans(flat.detach(), K, p.kmeans_iters, kmeans_idx, row_generator)
         state = CodebookState(embed=means, embed_avg=means, cluster_size=bins,
                               initted=torch.ones_like(state.initted))
 
@@ -196,8 +238,8 @@ def vq_forward(
             embed = embed_avg / smoothed[:, None]
             if p.threshold_ema_dead_code > 0:
                 expired = cluster_size < p.threshold_ema_dead_code
-                ridx = _row_draw(dead_code_idx, K, flat.shape[0], generator, flat.device)
-                embed = torch.where(expired[:, None], flat[ridx], embed)
+                ridx = _row_draw(dead_code_idx, K, rows, row_generator, flat.device)
+                embed = torch.where(expired[:, None], _global_rows(flat, ridx), embed)
         new_state = CodebookState(embed=embed, embed_avg=embed_avg,
                                   cluster_size=cluster_size, initted=state.initted)
         commit_loss = ((quantized - flat) ** 2).mean()  # quantized carries no gradient

@@ -12,12 +12,19 @@ a collective of this module explicitly:
     whose backward sums the statistics' gradients as well, so the step
     differentiates through the global statistics as JAX's does;
   - the VQ's EMA statistics (``models/vq.py``): the kernel's per-rank
-    ``counts`` and ``embed_sum``, summed by ``all_reduce_``;
+    ``counts`` and ``embed_sum``, summed by ``all_reduce_``, and its
+    k-means init and dead-code expiry: rows drawn over the global batch,
+    each filled in by the rank that holds it and summed, and the Lloyd
+    iterations' counts and sums;
   - the masked cross-entropy (``models/maskgit.py::masked_ce``): a global
     denominator;
   - the gradients (``all_reduce_grads``), averaged after the backward and
     before AdamW;
-  - the logged metrics (``all_reduce_metrics``), averaged when they are read.
+  - the logged metrics (``all_reduce_metrics``), averaged when they are read;
+  - the stage-2/3 precompute sweeps and the validation sampler
+    (``train/stage2.py``, ``train/stage3.py``): each rank's slice of a
+    batch, put back together in rank order by ``all_gather``, as JAX shards
+    the sweep batch or the decoded tokens over the mesh.
 
 Every collective runs whenever a process group is initialised, a one-rank
 group included (where it is an identity; the BatchNorm statistics of a
@@ -37,13 +44,14 @@ is entered) the batch is split over the *data* index alone: ``data_index``
 and ``data_count`` take the place of ``process_index`` and
 ``process_count`` in ``shard_bounds``, ``shard_batch`` and every reduction
 over the batch, and the reductions (``all_reduce_``, ``all_reduce_sum``,
-``all_reduce_metrics``, ``all_gather_object``) run over the rank's data
-group unless given another group. Without a grid the data group is the
+``all_reduce_metrics``, ``all_gather_object``, ``all_gather``) run over
+the rank's data group unless given another group. Without a grid the data group is the
 world and the data index the rank. ``broadcast_``, ``replicate_`` and
 ``barrier`` stay over the world.
 """
 
 import queue
+import socket
 import threading
 from typing import Dict, Iterable, Iterator, Optional
 
@@ -227,6 +235,29 @@ def all_gather_object(obj, group=None) -> list:
     out = [None] * _size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The ``t`` of every rank of ``group`` (default: the data group),
+    concatenated along dim 0 in rank order (under a grid: data-index
+    order); ``t`` itself without a process group. Every rank's ``t`` has
+    the same shape."""
+    if not initialized():
+        return t
+    group = data_group() if group is None else group
+    parts = [torch.empty_like(t) for _ in range(_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def one_host() -> bool:
+    """Whether every rank of the world runs on this host (True without a
+    process group): the port's ``jax.process_count() == 1``. PyTorch drives
+    W cards of one host as W processes, where JAX drives them from one.
+    Every rank calls it together (it gathers the host names)."""
+    if not initialized():
+        return True
+    return len(set(all_gather_object(socket.gethostname(), dist.group.WORLD))) == 1
 
 
 def shard_bounds(batch_size: int, index: Optional[int] = None,

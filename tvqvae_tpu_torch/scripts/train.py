@@ -31,8 +31,10 @@ trains stage 1, stage 2 on precomputed tokens and stage 3 on a precomputed
 x' in bundles of that many steps: on the card each stage's step is captured
 once as a CUDA graph and replayed a bundle at a time, on the CPU a bundle is
 the same steps in a loop; the steps are the single steps, the logged train
-metrics the bundle's means (``train/multistep.py``). Asking for
-``--rbg_rng`` is an error naming it and its reason (``runner.REFUSED``).
+metrics the bundle's means (``train/multistep.py``). ``--rbg_rng`` reaches
+stage 1 as ``rng_impl="rbg"``, as in JAX: the port's dropout masks come
+from torch's generator either way (on the card Philox4x32-10, a
+counter-based generator as XLA's rbg is), so the flag changes nothing.
 
 Data-parallel training: run this CLI in every rank of a ``torch.distributed``
 process group that the launching code initialised (the JAX CLI has no
@@ -51,7 +53,7 @@ from tvqvae_tpu_torch.data import get_data
 from tvqvae_tpu_torch.evaluation import Metrics
 from tvqvae_tpu_torch.generation import TrainedModelSampler, search_optimal_tau
 from tvqvae_tpu_torch.parallel import is_primary, process_count
-from tvqvae_tpu_torch.scripts._cli import load_config, refuse_unported
+from tvqvae_tpu_torch.scripts._cli import load_config
 from tvqvae_tpu_torch.train import runner
 from tvqvae_tpu_torch.utils.checkpoint import load_checkpoint
 from tvqvae_tpu_torch.utils.logging import RunLogger
@@ -93,7 +95,6 @@ def build_argparser():
                    help="stage 1: the TimeHead dense in the compute dtype (residual float32)")
     p.add_argument("--bf16_istft", action=argparse.BooleanOptionalAction, default=False,
                    help="stage 1: the decode path's iSTFT in the compute dtype")
-    # the JAX package's options the port does not run: refused when asked for
     p.add_argument("--no_precompute", action="store_true",
                    help="stages 2/3: run the frozen stage 1 inside every step instead of "
                         "the one-sweep precompute (the reference behaviour)")
@@ -106,7 +107,9 @@ def build_argparser():
                         "same steps; the same steps as bundles of 1, train metrics logged as "
                         "bundle means")
     p.add_argument("--rbg_rng", action="store_true",
-                   help="refused: " + runner.REFUSED["rng_impl"])
+                   help="stage 1: JAX's counter-based (rbg) generator for the dropout masks; "
+                        "the port's masks come from torch's generator, on the card "
+                        "Philox4x32-10 (counter-based), either way")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel width: train over a 2-D (data, model) grid of the "
                         "ranks with the big parameter leaves and AdamW moments sharded over "
@@ -132,7 +135,6 @@ def search_tau(cfg, data, paths, device) -> float:
 def main(argv=None):
     p = build_argparser()
     args = p.parse_args(argv)
-    refuse_unported(p, {f"--rbg_rng ({runner.REFUSED['rng_impl']})": args.rbg_rng})
     if args.tp > 1 and process_count() % args.tp:
         p.error(f"{process_count()} devices not divisible by tp={args.tp}")
     dtype = "bfloat16" if args.bf16 else "float32"
@@ -183,7 +185,8 @@ def main(argv=None):
                 runner.train_stage1(cfg, data, logger=log, save_path=paths["1"],
                                     compute_dtype=dtype, remat=args.remat, fast_bn=args.fast_bn,
                                     bf16_head=args.bf16_head, bf16_istft=args.bf16_istft,
-                                    data_on_device=not args.host_data, **moments, **tp,
+                                    data_on_device=not args.host_data,
+                                    rng_impl="rbg" if args.rbg_rng else None, **moments, **tp,
                                     **common)
             elif stage == "2":
                 frozen, _, _ = runner.load_stage1_bundle(cfg, paths["1"], device=args.device)

@@ -29,10 +29,11 @@ the tail (``single``) runs eager steps, whose host-fed batches come from the
 same static buffer. A capture or a replay that fails raises; nothing falls
 back to eager steps.
 
-- The generator registers with the graph
-  (``CUDAGraph.register_generator_state``), so each replay draws from its
-  offset at that replay, as the eager step draws: the same numbers, and the
-  generator's state after a bundle is the eager steps' (snapshots save it).
+- The generators register with the graph
+  (``CUDAGraph.register_generator_state``), so each replay draws from their
+  offsets at that replay, as the eager step draws: the same numbers, and the
+  generators' states after a bundle are the eager steps' (snapshots save
+  them).
 - The capture runs the step's Python once without running a kernel, so the
   host counters it advanced (``state.step``, the schedule, the optimizer's
   ``count``) are put back after it; each replay advances them by one step.
@@ -63,7 +64,8 @@ class Multistep:
     means; ``single()`` runs one eager step and returns its metrics (JAX's
     ``train_tail``). ``state`` is the stage's train state (its ``step``,
     ``scheduler`` and ``optimizer``, an ``AdamWStorage``), ``generator`` the
-    steps' generator (on the state's device), ``max_steps`` the run's last
+    steps' generator (on the state's device) or a tuple of the generators
+    they draw from, ``max_steps`` the run's last
     step (the optimizer's table is grown to it before the capture).
     ``prepare(k)``, where given, stages the next ``k`` steps' batches
     before each bundle and each single step; ``ready()``, where given, must
@@ -72,10 +74,12 @@ class Multistep:
     ``capture_s`` is the capture's seconds (None before it) and
     ``replays`` the replays so far."""
 
-    def __init__(self, step: Callable[[], Metrics], state, generator: Optional[torch.Generator],
-                 max_steps: int, prepare: Optional[Callable[[int], None]] = None,
+    def __init__(self, step: Callable[[], Metrics], state, generator, max_steps: int,
+                 prepare: Optional[Callable[[int], None]] = None,
                  ready: Optional[Callable[[], bool]] = None):
-        self.step, self.state, self.generator = step, state, generator
+        self.step, self.state = step, state
+        gens = generator if isinstance(generator, tuple) else (generator,)
+        self.generators = [g for g in gens if g is not None]
         self.max_steps = max_steps
         self.prepare = prepare or (lambda k: None)
         self.ready = ready or (lambda: True)
@@ -125,8 +129,8 @@ class Multistep:
                 [g["lr"] for g in opt.param_groups], opt.count)
         before = vq_kernel.captured_launches
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for g in self.generators:
+            graph.register_generator_state(g)
         t0 = time.perf_counter()
         # thread-local: a prefetch thread (the host feed) may pin memory meanwhile
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):

@@ -32,15 +32,24 @@ tail continues the run's order.
 
 Data parallelism (``parallel/``): the runners run unchanged in every rank of
 a ``torch.distributed`` process group that the caller initialised, as JAX's
-do under ``jax.distributed``. With more than one rank they take the JAX
-package's multi-process paths: per-step host batches, each rank its
-contiguous slice of every global batch (``make_batches(process_index,
-process_count)``), and the on-the-fly steps of stages 2 and 3. The steps
-reduce what JAX reduces over the sharded batch (BatchNorm statistics, the VQ
-statistics, the masked cross-entropy, the gradients), so W ranks take the
-step one process takes over the global batch; rank r draws its dropouts and
-masks from its own generator. The primary rank prints, logs, validates
-stages 2-3 and writes every file; the others wait at a barrier.
+do under ``jax.distributed``. With more than one rank they take per-step
+host batches, each rank its contiguous slice of every global batch
+(``make_batches(process_index, process_count)``). PyTorch drives W cards of
+one host as W processes where JAX drives them from one, so what JAX does
+under ``jax.process_count() == 1`` the port does when every rank runs on
+one host (``parallel.one_host``): stages 2 and 3 precompute their sweep,
+spread over the data group, and step on their slices of the precomputed
+arrays; ranks spread over hosts take the on-the-fly steps, as JAX's
+multi-process runs do. The steps reduce what JAX reduces over the sharded
+batch (BatchNorm statistics, the VQ statistics and its k-means init and
+dead-code rows, the masked cross-entropy, the gradients), so W ranks take
+the step one process takes over the global batch; rank r draws its dropouts
+and masks from its own generator. The validations of stages 2-3 sample over
+the data group where it divides ``evaluation.batch_size``, as JAX's runners
+hand their sampler the mesh; the primary rank scores them, prints, logs and
+writes every file; the others wait at a barrier. JAX bundles its steps
+whenever ``jax.process_count() == 1``; the port bundles only without a
+process group (``_bundle``).
 
 Tensor parallelism (``tp`` > 1, ``parallel/tp.py``): the W ranks form a
 (W / tp, tp) grid, as JAX's runner builds its 2-D mesh; W must divide by
@@ -96,6 +105,7 @@ from tvqvae_tpu_torch.models.maskgit import FrozenStage1, MaskGITSpec, build_tra
 from tvqvae_tpu_torch.models.stage1 import Stage1Spec, init_stage1
 from tvqvae_tpu_torch.models.vq import CodebookState
 from tvqvae_tpu_torch.parallel.mesh import (
+    all_gather,
     all_gather_object,
     all_reduce_,
     all_reduce_grads,
@@ -105,9 +115,11 @@ from tvqvae_tpu_torch.parallel.mesh import (
     data_index,
     initialized,
     is_primary,
+    one_host,
     prefetch_batches,
     process_count,
     replicate_,
+    shard_batch,
 )
 from tvqvae_tpu_torch.parallel.tp import (
     full_optimizer_state,
@@ -242,7 +254,9 @@ def train_state_payload(state, generator: torch.Generator) -> dict:
     of each module in it, its codebooks, the optimizer's and the schedule's
     states, the step, and the state of the generator the steps draw from:
     ``generators`` holds one per slice of the batch, in data-index order
-    (each slice draws its own dropouts and masks). Tensor-parallel
+    (each slice draws its own dropouts and masks); a generator in the
+    state (stage 1's ``draws``, the same on every rank) is written under its
+    field's name. Tensor-parallel
     parameters and moments are written whole (``parallel/tp.py``), so the
     layout does not depend on ``tp``. Inside a process group every rank
     calls this together."""
@@ -257,6 +271,8 @@ def train_state_payload(state, generator: torch.Generator) -> dict:
                 payload[f.name] = v.state_dict()
             elif isinstance(v, CodebookState):
                 payload[f.name] = {c.name: getattr(v, c.name) for c in dataclasses.fields(v)}
+            elif isinstance(v, torch.Generator):  # the same on every rank (stage 1's draws)
+                payload[f.name] = v.get_state()
     return payload
 
 
@@ -276,6 +292,8 @@ def restore_train_state(state, generator: torch.Generator, payload: dict) -> int
             v.load_state_dict(payload[f.name])
         elif isinstance(v, CodebookState):
             setattr(state, f.name, CodebookState(**payload[f.name]).to(v.embed.device))
+        elif isinstance(v, torch.Generator):
+            v.set_state(payload[f.name])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.scheduler.load_state_dict(payload["scheduler"])
     generator.set_state(gens[data_index()])
@@ -316,6 +334,13 @@ def _rank_generator(seed: int, dev) -> torch.Generator:
     masks and the ranks of a model group, which hold one slice, draw the
     same ones."""
     return torch.Generator(device=dev).manual_seed(seed + (data_index() << 32))
+
+
+def _draw_generator(seed: int, dev) -> torch.Generator:
+    """The generator of stage 1's k-means and dead-code rows: seeded
+    ``seed`` on every rank and in one process, so that the ranks draw the
+    rows one process draws (JAX draws them from its one replicated key)."""
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def _replicate(*parts) -> None:
@@ -480,8 +505,9 @@ def _bundled(name: str, bundle: int, step, state, generator, max_steps: int, fee
              ready=None):
     """-> (``train_once``, the other ``_loop`` arguments) of a stage trained
     in bundles of ``bundle`` steps of ``step`` (``train/multistep.py``,
-    whose ``prepare`` is ``feed``'s); with ``bundle`` 1 each step is an
-    eager step."""
+    whose ``prepare`` is ``feed``'s; ``generator`` one generator the steps
+    draw from, or a tuple of them); with ``bundle`` 1 each step is an eager
+    step."""
     ms = Multistep(step, state, generator, max_steps,
                    prepare=feed.prepare if feed is not None else None, ready=ready)
     if bundle == 1:
@@ -498,17 +524,7 @@ def _bundled(name: str, bundle: int, step, state, generator, max_steps: int, fee
     return train_once, dict(stride=bundle, train_tail=lambda step: ms.single())
 
 
-REFUSED = {
-    "rng_impl": "torch has no counterpart to XLA's counter-based RNG implementations",
-}
-
-
-def _unported(**flags) -> None:
-    """``NotImplementedError`` naming each JAX runner option asked for that
-    the port refuses, with its reason (``REFUSED``)."""
-    asked = [k for k, v in flags.items() if v]
-    if asked:
-        raise NotImplementedError("; ".join(f"{k}: {REFUSED[k]}" for k in asked))
+RNG_IMPLS = (None, "threefry2x32", "rbg", "unsafe_rbg")  # jax.random.key's impl names
 
 
 def _train_grid(tp: int):
@@ -523,12 +539,37 @@ def _train_grid(tp: int):
     return make_mesh2d(W // tp, tp)
 
 
+def _validating(metrics) -> bool:
+    """Whether the primary scores validations (in the train CLI it alone
+    holds ``metrics``), on every rank: they all take part in a validation
+    that fans out over the data group or gathers split weights."""
+    return all_gather_object(metrics is not None, torch.distributed.group.WORLD)[0]
+
+
+def _val_fan_out(cfg: Config, name: str) -> bool:
+    """Whether a stage's validations sample over the data group: inside a
+    process group of more than one slice whose count divides
+    ``evaluation.batch_size``, as JAX's runners hand the sampler their mesh;
+    otherwise the primary samples alone, as JAX does without one."""
+    if data_count() == 1:
+        return False
+    if cfg.evaluation.batch_size % data_count():
+        _say(f"[{name}] validation batch {cfg.evaluation.batch_size} not divisible by "
+             f"{data_count()} data slices: the primary samples alone")
+        return False
+    return True
+
+
 def _val_samples(cfg: Config, sample_fn: Callable, n_val: Optional[int], seed: int, dev,
-                 enhance: Optional[Callable] = None):
+                 enhance: Optional[Callable] = None, data_parallel: bool = False):
     """``n_val`` (default ``min(min_num_gen_samples, 1024)``) unconditional
     series in batches of ``evaluation.batch_size`` from a generator seeded
     ``seed`` -> host arrays [("", x)] and, with ``enhance``, (" with FE",
-    enhance(x)) batch by batch."""
+    enhance(x)) batch by batch. With ``data_parallel`` every rank calls it
+    together with a ``sample_fn`` over the data group
+    (``make_sampling_fn(data_parallel=True)``), and each rank enhances its
+    slice of a batch that the group divides, the slices gathered in rank
+    order."""
     n_val = n_val or min(cfg.evaluation.min_num_gen_samples, 1024)
     vbatch = cfg.evaluation.batch_size
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -538,7 +579,9 @@ def _val_samples(cfg: Config, sample_fn: Callable, n_val: Optional[int], seed: i
         xs.append(x.cpu().numpy())
         if enhance is not None:
             with torch.inference_mode():
-                xs_fe.append(enhance(x).cpu().numpy())
+                split = data_parallel and len(x) % data_count() == 0
+                xs_fe.append((all_gather(enhance(shard_batch(x))) if split
+                              else enhance(x)).cpu().numpy())
     sets = [("", np.concatenate(xs))]
     if enhance is not None:
         sets.append((" with FE", np.concatenate(xs_fe)))
@@ -559,6 +602,19 @@ def _running_metrics(metrics, sets) -> dict:
         out[f"running_metrics/SD{tag}"] = sd
         out[f"running_metrics/KD{tag}"] = kd
     return out
+
+
+def _precompute_here(name: str) -> bool:
+    """Whether a stage precomputes its sweep: in one process, and inside a
+    process group whose ranks all run on this host (``parallel.one_host``),
+    the sweep spread over the data group; ranks spread over hosts take the
+    on-the-fly steps, as JAX's multi-process runs do (JAX precomputes
+    whenever ``jax.process_count() == 1``)."""
+    if one_host():
+        return True
+    _say(f"[{name}] ranks on more than one host: the frozen stage 1 runs inside every step, "
+         f"as in JAX's multi-process runs")
+    return False
 
 
 def _batch_order(N: int, batch_size: int, steps: int, seed: int, dev) -> torch.Tensor:
@@ -606,7 +662,7 @@ def train_stage1(
     With ``data_on_device`` (the default) the train split is uploaded once
     and each step gathers its batch on the device; without it, or inside a
     process group of more than one rank (as in JAX), each step's batch comes
-    from the host (``_feed``), the same batches. Inside a process group
+    from the host (``_Feed``), the same batches. Inside a process group
     each rank steps on its slice of every global batch: the BatchNorm
     statistics, the VQ's EMA statistics, the gradients and the logged
     metrics are the global batch's (``parallel/``), rank r's dropout masks
@@ -614,11 +670,21 @@ def train_stage1(
     writes the checkpoint and snapshots (holding every slice's generator),
     and validation spreads its batches over the data index. With ``tp`` > 1
     the ranks train as a (W / tp, tp) grid (module docstring).
+    The rows of the codebooks' k-means init and dead-code expiry (both off
+    in the published config) come from a generator of their own, seeded
+    ``seed + 2`` alike on every rank (``_draw_generator``, the state's
+    ``draws``), so W ranks draw the global batch's rows that one process
+    draws; the snapshot holds its state.
     ``bundle_steps`` > 1 trains in bundles of that many steps (module
     docstring), on the device gather and on the host feed, whose bundle's
-    batches are staged on the device together. XLA's RNG implementations
-    (``rng_impl``: torch has no counterpart) raise ``NotImplementedError``."""
-    _unported(rng_impl=rng_impl is not None)
+    batches are staged on the device together. ``rng_impl`` names the XLA
+    PRNG implementation of JAX's dropout key (``"rbg"`` under the CLI's
+    ``--rbg_rng``); it is accepted and changes nothing here: the masks come
+    from torch's generator, on the card Philox4x32-10, a counter-based
+    generator as rbg is, and JAX's runs under either implementation differ
+    only in their masks (``tests/test_rbg_rng.py``)."""
+    if rng_impl not in RNG_IMPLS:
+        raise ValueError(f"rng_impl {rng_impl!r} is none of JAX's {RNG_IMPLS[1:]}")
     grid = _train_grid(tp)
     dev = resolve_device(device)
     batch_size = cfg.dataset.batch_sizes.get("stage1", 32)
@@ -633,7 +699,8 @@ def train_stage1(
                                       bf16_head=bf16_head, bf16_istft=bf16_istft)
         model, vq_l, vq_h = init_stage1(spec, torch.Generator().manual_seed(seed), dev)
         _replicate(model, vq_l, vq_h)
-        state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu))
+        state = create_stage1_state(model, vq_l, vq_h, _adamw(cfg, max_steps, bf16_mu, bf16_nu),
+                                    draws=_draw_generator(seed + 2, dev))
         _say(f"[stage1] model init: {time.time() - t_init:.1f}s")
 
         gen = _rank_generator(seed + 1, dev)
@@ -650,8 +717,8 @@ def train_stage1(
         # k-means init latches on the first step: a graph is captured after it
         latched = spec.vq_l.kmeans_init or spec.vq_h.kmeans_init
         train_once, bundled = _bundled(
-            "stage1", bundle, lambda: step_fn(state, feed.next()[0], gen)[1], state, gen,
-            max_steps, feed,
+            "stage1", bundle, lambda: step_fn(state, feed.next()[0], gen)[1], state,
+            (gen, state.draws), max_steps, feed,
             ready=(lambda: bool(state.vq_l.initted) and bool(state.vq_h.initted)) if latched
             else None)
 
@@ -696,20 +763,24 @@ def train_stage2(
     run encodes the token dataset again (the sweep is deterministic).
 
     With ``precompute`` (the default) one sweep encodes the train split to
-    token grids through the VQ kernel, and the steps run on those, gathered
-    on the device; without it, or inside a process group of more than one
-    rank (as in JAX), each step encodes its batch through the frozen stage 1
+    token grids through the VQ kernel, and the steps run on those: one
+    process gathers them on the device; inside a process group whose ranks
+    share one host the sweep spreads over the data group and each rank
+    takes its slice of every global batch from the host (``_Feed``).
+    Without it, or over ranks on more than one host (as in JAX), each step
+    encodes its batch through the frozen stage 1
     (``train/stage2.py::make_stage2_train_step``, two VQ launches) and makes
     the same update from the same generator state: one process gathers the
     batch on the device, the ranks of a group take host batches
-    (``_feed``). Batches of ``dataset.batch_sizes["stage2"]`` follow
+    (``_Feed``). Batches of ``dataset.batch_sizes["stage2"]`` follow
     ``make_batches(shuffle=True, seed=seed, repeat=True)`` (the JAX token
     path permutes on the device with threefry instead, a deviation its own
     runner calls non-semantic); masks and dropouts come from a generator
-    seeded ``seed + 1`` (rank 0's). With ``metrics`` each validation scores
-    ``val_n_samples`` series sampled from the priors as they are, from a
-    generator seeded ``10_000 + step`` (module docstring), on the primary
-    rank. ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16. Inside
+    seeded ``seed + 1`` (rank 0's). With ``metrics`` (the primary's) each
+    validation scores ``val_n_samples`` series sampled from the priors as
+    they are, from a generator seeded ``10_000 + step`` (module docstring),
+    on the primary rank, the batches decoded over the data group where it
+    divides ``evaluation.batch_size``. ``bf16_mu``/``bf16_nu`` store Adam's moments in bfloat16. Inside
     a process group the ranks step as in ``train_stage1``: the HF prior's
     BatchNorm statistics, the masked cross-entropies' denominators, the
     gradients and the logged metrics are the global batch's. With ``tp`` > 1
@@ -736,18 +807,19 @@ def train_stage2(
         gen = _rank_generator(seed + 1, dev)
         start_step = _resume(save_path, resume, state, gen, "stage2")
         shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
-        if precompute and data_count() == 1:
+        if precompute and _precompute_here("stage2"):
             t0 = time.time()
             tok_l, tok_h = precompute_token_dataset(frozen,
                                                     torch.from_numpy(data.X_train).to(dev),
-                                                    batch_size=max(batch_size, 64))
+                                                    batch_size=max(batch_size, 64),
+                                                    data_parallel=initialized())
             _say(f"[stage2] precomputed {len(tok_l)} token rows in {time.time() - t0:.1f}s")
             feed = _Feed((tok_l, tok_h, data.y_train), batch_size, max_steps, seed, dev,
                          start_step)
             train_once, bundled = _bundled(
                 "stage2", _bundle("stage2", bundle_steps),
                 lambda: stage2_train_step_tokens(state, *feed.next(), gen)[1],
-                state, gen, max_steps)
+                state, gen, max_steps, feed)
         else:  # per-step dispatch, as in JAX
             step_fn = make_stage2_train_step(frozen)
             feed = _Feed((data.X_train, data.y_train), batch_size, max_steps, seed, dev,
@@ -757,16 +829,19 @@ def train_stage2(
                                            state, gen, max_steps, feed)
 
         eval_once = None
-        if metrics is not None:
+        if _validating(metrics):
+            fan_out = _val_fan_out(cfg, "stage2")
             sample_fn = make_sampling_fn(frozen, state.t_l, state.t_h,
-                                         MaskGITSpec.from_config(cfg, frozen.model.spec))
+                                         MaskGITSpec.from_config(cfg, frozen.model.spec),
+                                         data_parallel=fan_out)
 
             def eval_once(step):
                 with gathered(state.t_l, state.t_h):
-                    if not is_primary():
+                    if not (fan_out or is_primary()):
                         return {}
-                    return _running_metrics(metrics, _val_samples(cfg, sample_fn, val_n_samples,
-                                                                  10_000 + step, dev))
+                    sets = _val_samples(cfg, sample_fn, val_n_samples, 10_000 + step, dev,
+                                        data_parallel=fan_out)
+                    return _running_metrics(metrics, sets) if is_primary() else {}
 
         _loop("stage2", max_steps, train_once, eval_once, logger,
               cfg.trainer_params.val_check_interval.get("stage2", 10000), log_interval,
@@ -812,19 +887,24 @@ def train_stage3(
 
     With ``precompute`` (the default) at tau = 0 one sweep computes x' for
     the train split through the VQ kernel (batches of ``max(batch_size,
-    32)``) and the steps gather (x, x') pairs on the device. At tau > 0,
-    without ``precompute``, or inside a process group of more than one rank
-    (as in JAX), each step runs its own round trip of its batch
+    32)``) and the steps gather (x, x') pairs on the device; inside a
+    process group whose ranks share one host the sweep spreads over the
+    data group and each rank takes its slice of every global batch of
+    (x, x') from the host. At tau > 0, without ``precompute``, or over
+    ranks on more than one host (as in JAX), each step runs its own round
+    trip of its batch
     (``train/stage3.py::make_stage3_train_step``), which at tau = 0 makes the
     same update from the same generator state: one process gathers the
     batch on the device, the ranks of a group take host batches
-    (``_feed``). Batches of
+    (``_Feed``). Batches of
     ``dataset.batch_sizes["stage3"]``; the SVQ draws and the dropout masks
     come from a generator seeded ``seed + 1`` (rank 0's). With ``metrics``
     and ``stage2_ckpt`` (a stage-2 checkpoint's path) each validation scores
     ``val_n_samples`` series sampled from those priors, from a generator
     seeded ``20_000 + step``, raw and through the enhancer as it is (module
-    docstring), on the primary rank; with ``metrics`` alone it scores
+    docstring), on the primary rank, the batches decoded and enhanced over
+    the data group where it divides ``evaluation.batch_size``; with
+    ``metrics`` alone it scores
     nothing, as in JAX. ``compute_dtype`` and ``fast_norm`` go to the
     enhancer, ``bf16_mu``/``bf16_nu`` to the optimizer; the frozen stage 1
     stays as it was loaded (float32 from the CLI, as in JAX). Inside a
@@ -852,7 +932,6 @@ def train_stage3(
     max_steps = max_steps or cfg.trainer_params.max_steps["stage3"]
     if save_path and _stage_completed(save_path, max_steps, resume, "stage3"):
         return None
-    precompute = precompute and tau == 0.0 and data_count() == 1
 
     with grid:
         fe = init_stage3(FidelityEnhancer.from_config(cfg, data.input_length, data.in_channels,
@@ -863,17 +942,21 @@ def train_stage3(
         gen = _rank_generator(seed + 1, dev)
         start_step = _resume(save_path, resume, state, gen, "stage3")
         shard_train_state_tp(state)  # JAX's _place_state: a no-op without a grid
-        if precompute:
+        if precompute and tau == 0.0 and _precompute_here("stage3"):
             step_fn = make_stage3_train_step_pre()
             X_dev = torch.from_numpy(data.X_train).to(dev)
             t0 = time.time()
+            # one process keeps x' on the device for its gather; the ranks of a
+            # group take their slices of each batch from the host (_Feed)
             xprime = precompute_xprime_dataset(frozen, X_dev, batch_size=max(batch_size, 32),
-                                               keep_on_device=True)
+                                               keep_on_device=data_count() == 1,
+                                               data_parallel=initialized())
             _say(f"[stage3] precomputed {len(xprime)} x' rows in {time.time() - t0:.1f}s")
-            feed = _Feed((X_dev, xprime), batch_size, max_steps, seed, dev, start_step)
+            arrays = (X_dev, xprime) if data_count() == 1 else (data.X_train, xprime)
+            feed = _Feed(arrays, batch_size, max_steps, seed, dev, start_step)
             train_once, bundled = _bundled("stage3", _bundle("stage3", bundle_steps),
                                            lambda: step_fn(state, *feed.next(), gen)[1],
-                                           state, gen, max_steps)
+                                           state, gen, max_steps, feed)
         else:  # per-step dispatch, as in JAX
             step_fn = make_stage3_train_step(frozen, tau)
             feed = _Feed((data.X_train,), batch_size, max_steps, seed, dev, start_step)
@@ -882,18 +965,21 @@ def train_stage3(
                                            state, gen, max_steps, feed)
 
         eval_once = None
-        if metrics is not None and stage2_ckpt is not None:
+        if _validating(metrics) and stage2_ckpt is not None:
+            fan_out = _val_fan_out(cfg, "stage3")
             t_l, t_h = priors_from_tree(cfg, frozen.model.spec, data.n_classes,
                                         load_checkpoint(stage2_ckpt)[0])
             sample_fn = make_sampling_fn(frozen, t_l.to(dev).eval(), t_h.to(dev).eval(),
-                                         MaskGITSpec.from_config(cfg, frozen.model.spec))
+                                         MaskGITSpec.from_config(cfg, frozen.model.spec),
+                                         data_parallel=fan_out)
 
             def eval_once(step):
                 with gathered(state.fe):
-                    if not is_primary():
+                    if not (fan_out or is_primary()):
                         return {}
-                    return _running_metrics(metrics, _val_samples(
-                        cfg, sample_fn, val_n_samples, 20_000 + step, dev, enhance=state.fe))
+                    sets = _val_samples(cfg, sample_fn, val_n_samples, 20_000 + step, dev,
+                                        enhance=state.fe, data_parallel=fan_out)
+                    return _running_metrics(metrics, sets) if is_primary() else {}
 
         _loop("stage3", max_steps, train_once, eval_once, logger,
               cfg.trainer_params.val_check_interval.get("stage3", 2500), log_interval,

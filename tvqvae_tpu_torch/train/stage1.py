@@ -37,14 +37,20 @@ class Stage1TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    draws: Optional[torch.Generator] = None  # the VQ's k-means and dead-code rows
 
 
 def create_stage1_state(model: Stage1Model, vq_l: CodebookState, vq_h: CodebookState,
-                        tx: Callable) -> Stage1TrainState:
+                        tx: Callable, draws: Optional[torch.Generator] = None
+                        ) -> Stage1TrainState:
     """``tx(parameters) -> (optimizer, scheduler)``, e.g. ``train/optim.py::adamw``
-    with its schedule bound."""
+    with its schedule bound. ``draws`` (on the model's device) draws the
+    rows of the codebooks' k-means init and dead-code expiry: inside a
+    process group every rank holds it in the same state (the runner seeds
+    it alike everywhere); without it one process draws them from the
+    step's generator."""
     optimizer, scheduler = tx(model.parameters())
-    return Stage1TrainState(model, vq_l, vq_h, optimizer, scheduler)
+    return Stage1TrainState(model, vq_l, vq_h, optimizer, scheduler, draws=draws)
 
 
 Metrics = Dict[str, torch.Tensor]
@@ -58,14 +64,16 @@ def copy_codebook_(dst: CodebookState, src: CodebookState) -> None:
 
 def make_stage1_train_step(in_place: bool = False) -> Callable:
     """Returns step(state, x, generator=None) -> (state, metrics); ``generator``
-    draws the dropout masks (on the model's device). The step binds the
+    draws the dropout masks (on the model's device), ``state.draws`` the
+    VQ's k-means and dead-code rows. The step binds the
     state's codebooks to the new ones, or with ``in_place`` copies the new
     ones into the state's tensors, which a CUDA graph of the step needs
     (``train/multistep.py``)."""
 
     def step(state: Stage1TrainState, x: torch.Tensor,
              generator: Optional[torch.Generator] = None) -> Tuple[Stage1TrainState, Metrics]:
-        out = state.model(x, state.vq_l, state.vq_h, train=True, generator=generator)
+        out = state.model(x, state.vq_l, state.vq_h, train=True, generator=generator,
+                          row_generator=state.draws)
         total, metrics = stage1_losses(out)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()

@@ -15,7 +15,8 @@ same update.
 Inside a ``torch.distributed`` process group each rank steps on its slice;
 the HF prior's BatchNorm statistics, the masked cross-entropies'
 denominators (``masked_ce``) and the averaged gradients
-(``parallel.all_reduce_grads``) are the global batch's.
+(``parallel.all_reduce_grads``) are the global batch's. The token sweep and
+the sampler take ``data_parallel`` to spread a batch over the group.
 
 JAX's step is a pure function of the state; here the state holds the two
 priors and the optimizer, which the step updates in place (the HF prior's
@@ -37,6 +38,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     MaskGITSpec,
     build_transformers,
     decode_tokens,
+    decoding_noise,
     encode_tokens,
     iterative_decoding,
     iterative_decoding_ess,
@@ -44,7 +46,7 @@ from tvqvae_tpu_torch.models.maskgit import (
     random_mask_tokens,
 )
 from tvqvae_tpu_torch.models.transformer import BidirectionalTransformer
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_grads
+from tvqvae_tpu_torch.parallel.mesh import all_gather, all_reduce_grads, data_count, shard_bounds
 from tvqvae_tpu_torch.utils.convert import prior_from_jax
 from tvqvae_tpu_torch.utils.device import resolve_device
 
@@ -146,28 +148,49 @@ def make_token_encode_fn(frozen: FrozenStage1) -> Callable:
     return enc
 
 
-def precompute_token_dataset(frozen: FrozenStage1, X, batch_size: int = 64
-                             ) -> Tuple[np.ndarray, np.ndarray]:
-    """One eval-mode sweep over ``X`` (N, C, L) -> (tokens_l (N, 27),
-    tokens_h (N, 108)) int32 numpy arrays. Fixed batches of
-    ``min(batch_size, N)`` rows, the last wrapped around to the start and
-    its wrapped rows dropped. ``X`` is a numpy array, or a tensor (already
-    on the frozen model's device: each batch is then a device gather)."""
-    enc = make_token_encode_fn(frozen)
-    dev = frozen.vq_l.embed.device
-    N = X.shape[0]
+def sweep_batches(X, N: int, batch_size: int, data_parallel: bool, dev):
+    """The batches of a precompute sweep over ``X`` (N, C, L): fixed
+    batches of ``min(batch_size, N)`` rows (with ``data_parallel`` rounded
+    up to a multiple of ``data_count()``, as JAX rounds to its mesh), the
+    last wrapped around to the start. -> (rows of the batch that are real,
+    this rank's rows of the batch on ``dev``: all of them, or with
+    ``data_parallel`` its ``shard_bounds`` slice). ``X`` is a numpy array,
+    or a tensor (each batch then a gather where it lies)."""
     bs = min(batch_size, N)
-    out_l, out_h = [], []
+    if data_parallel:
+        bs = -(-bs // data_count()) * data_count()
     for start in range(0, N, bs):
         idx = np.arange(start, start + bs) % N
+        if data_parallel:
+            idx = idx[shard_bounds(bs)]
         if isinstance(X, torch.Tensor):
             xb = X[torch.from_numpy(idx).to(X.device)]
         else:
             xb = torch.from_numpy(np.ascontiguousarray(X[idx], dtype=np.float32))
-        s_l, s_h = enc(xb.to(dev))
-        real = min(bs, N - start)
-        out_l.append(s_l[:real])
-        out_h.append(s_h[:real])
+        yield min(bs, N - start), xb.to(dev)
+
+
+def precompute_token_dataset(frozen: FrozenStage1, X, batch_size: int = 64,
+                             data_parallel: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """One eval-mode sweep over ``X`` (N, C, L) -> (tokens_l (N, 27),
+    tokens_h (N, 108)) int32 numpy arrays. Fixed batches of
+    ``min(batch_size, N)`` rows, the last wrapped around to the start and
+    its wrapped rows dropped. ``X`` is a numpy array, or a tensor (already
+    on the frozen model's device: each batch is then a device gather).
+
+    With ``data_parallel`` every rank of the data group calls it together
+    (JAX's ``mesh=``): the batch is rounded up to a multiple of
+    ``data_count()``, each rank encodes its slice (two VQ launches) and one
+    all-gather gives every rank the whole batch's tokens, which are one
+    process's (the encode is per series)."""
+    enc = make_token_encode_fn(frozen)
+    gather = all_gather if data_parallel else (lambda t: t)
+    out_l, out_h = [], []
+    for real, xb in sweep_batches(X, X.shape[0], batch_size, data_parallel,
+                                   frozen.vq_l.embed.device):
+        s_l, s_h = enc(xb)
+        out_l.append(gather(s_l)[:real])
+        out_h.append(gather(s_h)[:real])
     return (torch.cat(out_l).to(torch.int32).cpu().numpy(),
             torch.cat(out_h).to(torch.int32).cpu().numpy())
 
@@ -177,10 +200,21 @@ def make_sampling_fn(
     t_l: BidirectionalTransformer,
     t_h: BidirectionalTransformer,
     spec: MaskGITSpec,
+    data_parallel: bool = False,
 ) -> Callable:
     """Returns fn(num, class_index=None, generator=None, noise=None) ->
     (x_l, x_h, x), each (num, C, L): MaskGIT decoding of both token grids,
-    codebook lookup, the frozen decoders and the LF+HF sum."""
+    codebook lookup, the frozen decoders and the LF+HF sum.
+
+    With ``data_parallel`` every rank of the data group calls it together
+    and the batch decodes over the group (JAX's ``mesh=``, which shards the
+    tokens over ``data``): every rank draws the whole batch's decoding
+    noise (``decoding_noise``, from ``generator`` as one process draws it,
+    or takes the given ``noise``), decodes the rows of its ``shard_bounds``
+    slice, and one all-gather gives every rank the whole batch in row
+    order: what one process samples. The ranks of a model group decode the
+    same slice. A ``num`` the group does not divide is decoded whole on
+    every rank."""
 
     def apply_l(s_l, cond):
         return t_l(s_l, None, cond)
@@ -188,9 +222,7 @@ def make_sampling_fn(
     def apply_h(s_l, s_h, cond):
         return t_h(s_l, s_h, cond)
 
-    @torch.inference_mode()
-    def sample(num: int, class_index: Optional[int] = None,
-               generator: Optional[torch.Generator] = None, noise: Optional[dict] = None):
+    def decode(num, class_index, generator, noise):
         device = frozen.vq_l.embed.device
         s_l, s_h = iterative_decoding(
             spec, apply_l, apply_h, num, class_index,
@@ -199,6 +231,18 @@ def make_sampling_fn(
         x_l = decode_tokens(frozen, s_l, "lf")
         x_h = decode_tokens(frozen, s_h, "hf")
         return x_l, x_h, x_l + x_h
+
+    @torch.inference_mode()
+    def sample(num: int, class_index: Optional[int] = None,
+               generator: Optional[torch.Generator] = None, noise: Optional[dict] = None):
+        if not data_parallel or num % data_count():
+            return decode(num, class_index, generator, noise)
+        if noise is None:
+            noise = decoding_noise(spec, num, generator, frozen.vq_l.embed.device)
+        rows = shard_bounds(num)
+        mine = {band: tuple(t[:, rows] for t in ts) for band, ts in noise.items()}
+        return tuple(all_gather(t) for t in decode(rows.stop - rows.start, class_index, None,
+                                                   mine))
 
     return sample
 

@@ -22,6 +22,7 @@ on the device as 0-dim tensors.
 Inside a ``torch.distributed`` process group each rank steps on its slice
 and the gradients are averaged over the ranks before AdamW
 (``parallel.all_reduce_grads``); the enhancer's GroupNorms are per series.
+The x' sweep takes ``data_parallel`` to spread each batch over the group.
 
 With ``percept_loss_weight`` w > 0 (0 in the published config) the loss is
 L1 + w mean((percept_fn(FE(x')) - percept_fn(x))^2), ``percept_fn`` being
@@ -34,13 +35,13 @@ the term silently when no ``percept_fn`` is given; here that is an error.
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from tvqvae_tpu_torch.models.fidelity_enhancer import FidelityEnhancer
 from tvqvae_tpu_torch.models.layers import init_weights_
 from tvqvae_tpu_torch.models.maskgit import FrozenStage1, decode_tokens, encode_tokens
-from tvqvae_tpu_torch.parallel.mesh import all_reduce_grads
+from tvqvae_tpu_torch.parallel.mesh import all_gather, all_reduce_grads
+from tvqvae_tpu_torch.train.stage2 import sweep_batches
 from tvqvae_tpu_torch.utils.device import resolve_device
 
 Metrics = Dict[str, torch.Tensor]
@@ -149,24 +150,21 @@ def make_xprime_fn(frozen: FrozenStage1) -> Callable:
 
 
 def precompute_xprime_dataset(frozen: FrozenStage1, X, batch_size: int = 32,
-                              keep_on_device: bool = False):
+                              keep_on_device: bool = False, data_parallel: bool = False):
     """One tau = 0 sweep over ``X`` (N, C, L) -> x' (N, C, L) float32, a numpy
     array or, with ``keep_on_device``, a tensor on the frozen model's device.
     Fixed batches of ``min(batch_size, N)`` rows, the last wrapped around to
     the start and its wrapped rows dropped (two VQ launches a batch). ``X``
     is a numpy array, or a tensor (already on the frozen model's device:
-    each batch is then a device gather)."""
+    each batch is then a device gather).
+
+    With ``data_parallel`` every rank of the data group calls it together
+    (JAX's ``mesh=``): the batch is rounded up to a multiple of
+    ``data_count()``, each rank runs the round trip of its slice (two VQ
+    launches) and one all-gather gives every rank the whole batch's x'."""
     f = make_xprime_fn(frozen)
-    dev = frozen.vq_l.embed.device
-    N = X.shape[0]
-    bs = min(batch_size, N)
-    out = []
-    for start in range(0, N, bs):
-        idx = np.arange(start, start + bs) % N
-        if isinstance(X, torch.Tensor):
-            xb = X[torch.from_numpy(idx).to(X.device)]
-        else:
-            xb = torch.from_numpy(np.ascontiguousarray(X[idx], dtype=np.float32))
-        out.append(f(xb.to(dev))[:min(bs, N - start)].float())
+    gather = all_gather if data_parallel else (lambda t: t)
+    out = [gather(f(xb).float())[:real] for real, xb in sweep_batches(
+        X, X.shape[0], batch_size, data_parallel, frozen.vq_l.embed.device)]
     xprime = torch.cat(out)
     return xprime if keep_on_device else xprime.cpu().numpy()
