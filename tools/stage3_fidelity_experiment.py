@@ -31,6 +31,11 @@ warmup-cosine schedule, 1000 steps. Reads both packages, writes only under
     keys from ``key(s + 1)``), the loss of every step. With ``--port_init``
     (the converse of arm (c)): from the port runner's init at seed s
     (``utils/convert.py::fe_to_jax``), JAX's own order and keys kept.
+    With ``--init_seed i`` (the init-only arm): the runner stays at seed s
+    (its order and dropout keys) and starts from the init draw i, JAX's
+    runner's (``init_stage3(key(i))``) or, with ``--port_init``, the port
+    runner's (``torch.Generator().manual_seed(i)``): the runs ``init_jax_si``
+    and ``init_port_si``, so the init alone varies between the two sides.
   - ``port --seed s``: the port's runner ``train_stage3(seed=s)`` (its own
     init, ``_batch_order``, its generator), the loss of every step. With
     ``--jax_init`` (arm (c)): from the JAX runner's init at seed s, the
@@ -57,8 +62,23 @@ warmup-cosine schedule, 1000 steps. Reads both packages, writes only under
     JAX's step compiled as written and JAX's default jit (small shapes).
   - ``bias_order --device cuda``: on the card, without JAX, whether its
     convs round the bias as flax does.
+  - ``init_law``: the enhancer's init against flax's at the published
+    widths and the quality geometry (L=512, the recipe's bfloat16 stream),
+    256 draws a side (JAX's runner's ``init_stage3(key(i))``, the port
+    runner's from ``Generator().manual_seed(i)``, i = 0..255): per leaf
+    of >= 256 elements KS of the values and of the per-output-channel norms,
+    the means and the tail shares beyond 1.5 std in standard errors, and
+    each side's one-sample KS against the exact law (a normal cut at +-2,
+    scaled to 1/sqrt(fan_in)); on 16 train rows and their x' (rows drawn
+    with ``--seed``), dropout 0, the KS p of ||FE(x') - x'|| / ||x'||, each
+    level's output std, the step-1 loss and the gradient norm
+    (``tests/test_torch_stage3_init_law.py``'s helpers). -> ``init_law.json``,
+    and every draw's statistics -> ``init_law_draws.json``; ``--first_draw
+    k`` takes seeds k..k+255 (``init_law_from<k>.json``).
   - ``stats``: from ``report.json``, each side's medians and Mann-Whitney's
-    p between the sides. -> ``stats.json``.
+    p between the sides; with ``init_law_draws.json``, Spearman's rho
+    between each statistic of a run's init draw and the run's scores, over
+    the init-only arm's runs. -> ``stats.json``.
 
 Set ``--threads`` (torch) and ``XLA_FLAGS`` to share the cores between
 parts run side by side.
@@ -81,9 +101,11 @@ sys.path.insert(0, os.path.join(REPO, "tests"))
 
 RECIPE = dict(compute_dtype="bfloat16", fast_norm=True, bf16_mu=True)
 # the arms' runs: each package's own (b), the port from JAX's init (c), JAX
-# from the port's init (the converse of (c))
-SIDES = ("jax", "port", "port_jinit", "jax_pinit")
+# from the port's init (the converse of (c)), and JAX's runner at one seed from
+# either package's init draw (the init-only arm)
+SIDES = ("jax", "port", "port_jinit", "jax_pinit", "init_jax", "init_port")
 LOSS_AT = (100, 250, 500, 1000)
+INIT_LAW_DRAWS = 256  # init_law: draws a side
 
 
 def _jax():
@@ -221,6 +243,19 @@ def _port_init(wd, seed):
     return convert.fe_to_jax(init_stage3(fe, torch.Generator().manual_seed(seed), "cpu"))
 
 
+def _jax_run_init(args):
+    """-> (the JAX run's name, the init tree it starts from, None for the
+    runner's own init at ``--seed``)."""
+    if args.init_seed is None:
+        if args.port_init:
+            return f"jax_pinit_s{args.seed}", _port_init(args.workdir, args.seed)
+        return f"jax_s{args.seed}", None
+    i = args.init_seed
+    if args.port_init:
+        return f"init_port_s{i}", _port_init(args.workdir, i)
+    return f"init_jax_s{i}", _jax_init(args.workdir, i)[1]
+
+
 def part_jax(args):
     jax = _jax()
     import jax.numpy as jnp
@@ -229,7 +264,7 @@ def part_jax(args):
     from tvqvae_tpu.train import stage3 as jst3
 
     wd, p, seed = args.workdir, _paths(args.workdir), args.seed
-    name = f"jax_pinit_s{seed}" if args.port_init else f"jax_s{seed}"
+    name, tree = _jax_run_init(args)
     jcfg, _ = _configs(wd)
     _, jdata = _data(wd)
     rec = _Losses()
@@ -238,8 +273,8 @@ def part_jax(args):
     jrunner._loop = functools.partial(loop, log_interval=1)  # the loss of every step
     jst3.precompute_xprime_dataset = lambda *a, keep_on_device=False, **k: (
         jnp.asarray(xprime) if keep_on_device else xprime)
-    if args.port_init:
-        tree = jax.tree.map(jnp.asarray, _port_init(wd, seed))
+    if tree is not None:
+        tree = jax.tree.map(jnp.asarray, tree)
         jrunner.init_stage3 = lambda rng, fe, x: tree
     t0 = time.time()
     try:
@@ -249,8 +284,8 @@ def part_jax(args):
     finally:
         jrunner._loop, jst3.precompute_xprime_dataset = loop, sweep
         jrunner.init_stage3 = init
-    _write(wd, f"{name}.json", {"seed": seed, "minutes": (time.time() - t0) / 60,
-                                "loss": rec.loss})
+    _write(wd, f"{name}.json", {"seed": seed, "init_seed": args.init_seed,
+                                "minutes": (time.time() - t0) / 60, "loss": rec.loss})
 
 
 def _port_run(args, name, seed, patch=None):
@@ -528,13 +563,13 @@ def part_report(args):
     with open(os.path.join(wd, "stage1.json")) as fh:
         rep["stage1"] = json.load(fh)
     for name in sorted(os.listdir(wd)):
-        if not re.fullmatch(r"(jax_s\d+|jax_pinit_s\d+|port_s\d+|port_jinit_s\d+|arm_a|card)\.json",
-                            name):
+        if not re.fullmatch(r"(jax_s\d+|jax_pinit_s\d+|port_s\d+|port_jinit_s\d+"
+                            r"|init_(jax|port)_s\d+|arm_a|card)\.json", name):
             continue
         run = name[:-5]
         with open(os.path.join(wd, name)) as fh:
             log = json.load(fh)
-        if run.startswith("jax"):
+        if run.startswith(("jax", "init_")):  # the JAX runner's checkpoints
             prm = jckpt.load_checkpoint(os.path.join(wd, run))[0]["params"]
 
             def enhance(x):
@@ -651,12 +686,98 @@ def part_stats(args):
         names = sorted(out[m])
         out[m]["p"] = {f"{a}~{b}": float(mannwhitneyu(vals[a], vals[b]).pvalue)
                        for i, a in enumerate(names) for b in names[i + 1:]}
+    draws = os.path.join(args.workdir, "init_law_draws.json")
+    if os.path.exists(draws):  # which property of an init draw goes with its run's scores
+        from scipy.stats import spearmanr
+
+        with open(draws) as fh:
+            draws = json.load(fh)
+        arm = [(draws[hit.group(1)], int(hit.group(2)), r) for k, r in runs.items()
+               if (hit := re.fullmatch(r"init_(jax|port)_s(\d+)", k))]
+        out["spearman"] = {}
+        for stat in draws["jax"]:
+            for m in ("fid_fe_xprime_test", "heldout_l1", "loss_1000"):
+                pairs = [(d[stat][i], r[m]) for d, i, r in arm if r.get(m) is not None]
+                if len(pairs) > 2:
+                    rho, p = spearmanr(*zip(*pairs))
+                    out["spearman"].setdefault(stat, {})[m] = {"rho": float(rho), "p": float(p),
+                                                               "n": len(pairs)}
     _write(args.workdir, "stats.json", out)
+
+
+def part_init_law(args):
+    """The law of the enhancer's init and its function at init, both
+    packages, ``INIT_LAW_DRAWS`` draws a side, at the published widths."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import torch
+
+    from scipy.stats import kstest, truncnorm
+
+    import test_torch_stage3_init_law as law
+    from test_torch_precision_paths import jit_as_written
+    from tvqvae_tpu.train.stage3 import init_stage3 as j_init_stage3
+    from tvqvae_tpu_torch.models.layers import TRUNCATED_NORMAL_STD
+    from tvqvae_tpu_torch.utils import convert
+
+    torch.set_num_threads(args.threads)
+    wd, n = args.workdir, INIT_LAW_DRAWS
+    _, cfg = _configs(wd)
+    data, _ = _data(wd)
+    f, L = cfg.fidelity_enhancer, data.input_length
+    widths = dict(dim=f.dim, dim_mults=tuple(f.dim_mults),
+                  resnet_block_groups=f.resnet_block_groups)
+    recipe = {k: RECIPE[k] for k in ("compute_dtype", "fast_norm")}
+    B = cfg.dataset.batch_sizes["stage3"]
+    t0, first = time.time(), args.first_draw
+    j_fe = law.jax_enhancer(L, widths, recipe)
+    x0 = jnp.asarray(data.X_train[:min(4, B)])
+    trees = law.jax_draws(law.jax_init(j_fe, x0), n, first)
+    own = jax.device_get(j_init_stage3(jax.random.key(first + n - 1), j_fe, x0))
+    assert all(np.array_equal(a, b) for a, b in zip(jax.tree.leaves(trees[-1]),
+                                                    jax.tree.leaves(own))), "not the runner's draws"
+    fes = law.port_draws(lambda: law.port_enhancer(L, widths, recipe), n, first)
+    ours = law.stacked([{k: v.detach() for k, v in fe.state_dict().items()} for fe in fes])
+    ref = law.stacked([convert.fe_from_jax(t) for t in trees])
+    leaves = law.leaf_law(ours, ref)
+    for k, row in leaves.items():  # each side against the exact law: a scaled normal cut at +-2
+        fan_in = int(np.prod(ref[k].shape[2:]))
+        exact = truncnorm(-2.0, 2.0, scale=1.0 / (np.sqrt(fan_in) * TRUNCATED_NORMAL_STD)).cdf
+        row["exact_ks"] = {side: float(kstest(v[k].ravel(), exact).pvalue)
+                           for side, v in (("jax", ref), ("port", ours))}
+    rows = np.sort(np.random.default_rng(args.seed).choice(len(data.X_train), B, replace=False))
+    x, xp = data.X_train[rows], _xprime_train(wd)[rows]
+    j_stats = law.jax_function_stats(jit_as_written(law.jax_stats_fn(j_fe, x, xp)), trees)
+    t_stats = law.port_function_stats(fes, x, xp, law.port_levels(fes[0]))
+    ps = law.function_law(t_stats, j_stats)
+
+    def summary(v):
+        return [float(np.median(v)), float(v.min()), float(v.max())]
+
+    tag = f"_from{first}" if first else ""
+    with open(os.path.join(wd, f"init_law{tag}_draws.json"), "w") as fh:
+        json.dump({"jax": {k: v.tolist() for k, v in j_stats.items()},
+                   "port": {k: v.tolist() for k, v in t_stats.items()}}, fh)
+    _write(wd, f"init_law{tag}.json", {
+        "n_draws": n, "first_draw": first, "widths": widths, "recipe": recipe, "input_length": L,
+        "batch_rows": rows.tolist(), "threads": torch.get_num_threads(),
+        "minutes": (time.time() - t0) / 60,
+        "leaves_failed": {c: [k for k, r in leaves.items() if not law.leaf_passes(r, c)]
+                          for c in law.LEAF_CHECKS},
+        "leaves_min_p": {c: min(r[c] for r in leaves.values()) for c in ("ks", "channel_norms")},
+        "leaves_max_abs_z": {c: max(abs(r[c]) for r in leaves.values()) for c in ("mean", "tails")},
+        "exact_min_p": {side: min(r["exact_ks"][side] for r in leaves.values())
+                        for side in ("jax", "port")},
+        "function_failed": [k for k, p in ps.items() if p < law.P_MIN],
+        "function_min_p": min(ps.values()),
+        "function": {k: {"p": p, "jax": summary(j_stats[k]), "port": summary(t_stats[k])}
+                     for k, p in ps.items()},
+        "leaves": leaves})
 
 
 PARTS = {"stage1": part_stage1, "jax": part_jax, "port": part_port, "arm_a": part_arm_a,
          "gen": part_gen, "report": part_report, "rounding": part_rounding,
-         "bias_order": part_bias_order, "stats": part_stats}
+         "bias_order": part_bias_order, "stats": part_stats, "init_law": part_init_law}
 
 
 def main(argv=None):
@@ -675,7 +796,12 @@ def main(argv=None):
     ap.add_argument("--jax_init", action="store_true",
                     help="port: start from the JAX runner's init at --seed")
     ap.add_argument("--port_init", action="store_true",
-                    help="jax: start from the port runner's init at --seed")
+                    help="jax: start from the port runner's init at --seed (or --init_seed)")
+    ap.add_argument("--first_draw", type=int, default=0,
+                    help="init_law: the first draw's seed (outputs tagged _from<k> unless 0)")
+    ap.add_argument("--init_seed", type=int, default=None,
+                    help="jax: start from the init draw at this seed (JAX's, or the port's "
+                         "with --port_init), the runner kept at --seed")
     args = ap.parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
     if args.part != "all":
