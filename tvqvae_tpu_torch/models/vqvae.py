@@ -76,9 +76,13 @@ class VQVAEDecoder(NamedStack):
 
 class TimeHead(nn.Module):
     """Post-iSTFT head: linear resize of (B, C, L') to ``input_length`` plus a
-    residual dense layer over time (out = x + Dense(x)). The dense computes
-    in ``compute_dtype`` (None: the parameters') and the residual add in the
-    parameters' dtype, float32, as in JAX."""
+    residual dense layer over time (out = x + Dense(x)). The dense's product
+    computes in ``compute_dtype`` (None: the parameters') and is rounded to
+    it once; its bias (cast to that dtype) and the residual add in the
+    parameters' dtype, float32. That is what the JAX package's jitted
+    ``TimeHead`` computes under XLA's default flags, which the JAX runner
+    uses: the dot's bfloat16 output, then the bias and the residual added
+    in float32, the sum never rounded to bfloat16."""
 
     def __init__(self, input_length: int, compute_dtype=None):
         super().__init__()
@@ -90,5 +94,4 @@ class TimeHead(nn.Module):
         x = interp_linear(x, self.input_length)
         w, b = self.Dense_0.weight, self.Dense_0.bias
         dt = self.compute_dtype or w.dtype
-        # the bias after the rounded product, as flax's nn.Dense adds it
-        return x + (F.linear(x.to(dt), w.to(dt)) + b.to(dt)).to(w.dtype)
+        return x + (F.linear(x.to(dt), w.to(dt)).to(w.dtype) + b.to(dt).to(w.dtype))
